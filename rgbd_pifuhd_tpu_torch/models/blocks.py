@@ -1,0 +1,186 @@
+"""Stacked-hourglass encoder (port of ``models/blocks.py``), NHWC at the
+boundary.  Attribute names follow the flax parameter tree, including flax's
+auto-numbered ``_NormReLU_<k>`` submodules in creation order.
+
+Dtypes follow flax: a conv with a ``dtype`` casts input, kernel and bias to
+it and returns it; a conv without one computes in f32.  GroupNorm (f32
+params) computes and returns f32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.resize import avg_pool2d, upsample2x_bicubic
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` on NHWC: ``weight`` OIHW, optional ``bias``."""
+
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 padding: int = 0, bias: bool = True,
+                 dtype: torch.dtype | None = None, device=None):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(cout, cin, k, k, device=device).normal_(0.0, 0.02))
+        self.bias = nn.Parameter(torch.zeros(cout, device=device)) \
+            if bias else None
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.dtype or torch.promote_types(x.dtype, torch.float32)
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(cd), self.weight.to(cd),
+                     None, self.stride, self.padding)
+        y = y.permute(0, 2, 3, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(cd)
+        return y
+
+
+class GroupNorm(nn.Module):
+    """flax ``GroupNorm``: statistics over every non-batch axis of a group,
+    ``E[x^2] - E[x]^2`` in f32 clipped at 0; returns f32.  Works on
+    ``[B, ..., C]`` (images and point sets alike)."""
+
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
+                 device=None):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        G = self.num_groups
+        C = x.shape[-1]
+        xg = x.float().reshape(x.shape[0], -1, G, C // G)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        mean2 = (xg * xg).mean(dim=(1, 3), keepdim=True)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(G, C // G)
+        y = (xg - mean) * mul + self.bias.reshape(G, C // G)
+        return y.reshape(x.shape)
+
+
+def make_norm(norm: str, channels: int, device=None) -> nn.Module:
+    if norm == "group":
+        return GroupNorm(channels, 32, device=device)
+    raise ValueError(f"norm {norm!r} is not ported yet")
+
+
+class _NormReLU(nn.Module):
+    """norm (named ``n``) -> relu."""
+
+    def __init__(self, norm: str, channels: int, device=None):
+        super().__init__()
+        self.n = make_norm(norm, channels, device)
+
+    def forward(self, x):
+        return F.relu(self.n(x))
+
+
+class ConvBlock(nn.Module):
+    """Pre-activation residual block: out/2 + out/4 + out/4 channels."""
+
+    def __init__(self, cin: int, cout: int, norm: str = "group", dtype=None,
+                 device=None):
+        super().__init__()
+        c2, c4 = cout // 2, cout // 4
+        self._NormReLU_0 = _NormReLU(norm, cin, device)
+        self.conv1 = Conv(cin, c2, 3, padding=1, bias=False, dtype=dtype,
+                          device=device)
+        self._NormReLU_1 = _NormReLU(norm, c2, device)
+        self.conv2 = Conv(c2, c4, 3, padding=1, bias=False, dtype=dtype,
+                          device=device)
+        self._NormReLU_2 = _NormReLU(norm, c4, device)
+        self.conv3 = Conv(c4, c4, 3, padding=1, bias=False, dtype=dtype,
+                          device=device)
+        self.has_down = cin != cout
+        if self.has_down:
+            self._NormReLU_3 = _NormReLU(norm, cin, device)
+            self.down_conv = Conv(cin, cout, 1, bias=False, dtype=dtype,
+                                  device=device)
+
+    def forward(self, x):
+        y1 = self.conv1(self._NormReLU_0(x))
+        y2 = self.conv2(self._NormReLU_1(y1))
+        y3 = self.conv3(self._NormReLU_2(y2))
+        out = torch.cat([y1, y2, y3], dim=-1)
+        res = self.down_conv(self._NormReLU_3(x)) if self.has_down else x
+        return out + res
+
+
+class HourGlass(nn.Module):
+    def __init__(self, depth: int, features: int, norm: str = "group",
+                 dtype=None, device=None):
+        super().__init__()
+        cb = lambda: ConvBlock(features, features, norm, dtype, device)  # noqa: E731
+        self.depth = depth
+        self.b1 = cb()
+        self.b2 = cb()
+        if depth > 1:
+            self.inner = HourGlass(depth - 1, features, norm, dtype, device)
+        else:
+            self.b2_plus = cb()
+        self.b3 = cb()
+
+    def forward(self, x):
+        up1 = self.b1(x)
+        low1 = self.b2(avg_pool2d(x, 2, 2))
+        low2 = self.inner(low1) if self.depth > 1 else self.b2_plus(low1)
+        low3 = self.b3(low2)
+        return up1 + upsample2x_bicubic(low3)
+
+
+class HGFilter(nn.Module):
+    """Stacked-hourglass pixel-aligned encoder; returns ``(outputs,
+    normx)`` with one ``[B, H', W', last_channels]`` map per stack."""
+
+    def __init__(self, n_stack: int, depth: int, last_channels: int,
+                 in_channels: int, norm: str = "group",
+                 down_type: str = "ave_pool", dtype=None, device=None):
+        super().__init__()
+        if down_type not in ("ave_pool", "no_down"):
+            raise ValueError(f"down_type {down_type!r} is not ported yet")
+        self.n_stack, self.down_type = n_stack, down_type
+        self.conv1 = Conv(in_channels, 64, 7, stride=2, padding=3,
+                          dtype=dtype, device=device)
+        self._NormReLU_0 = _NormReLU(norm, 64, device)
+        self.conv2 = ConvBlock(64, 128, norm, dtype, device)
+        self.conv3 = ConvBlock(128, 128, norm, dtype, device)
+        self.conv4 = ConvBlock(128, 256, norm, dtype, device)
+        for i in range(n_stack):
+            setattr(self, f"m{i}", HourGlass(depth, 256, norm, dtype, device))
+            setattr(self, f"top_m_{i}", ConvBlock(256, 256, norm, dtype,
+                                                  device))
+            setattr(self, f"conv_last{i}", Conv(256, 256, 1, dtype=dtype,
+                                                device=device))
+            setattr(self, f"_NormReLU_{i + 1}", _NormReLU(norm, 256, device))
+            setattr(self, f"l{i}", Conv(256, last_channels, 1, dtype=dtype,
+                                        device=device))
+            if i < n_stack - 1:
+                setattr(self, f"bl{i}", Conv(256, 256, 1, device=device))
+                setattr(self, f"al{i}", Conv(last_channels, 256, 1,
+                                             device=device))
+
+    def forward(self, x):
+        x = self._NormReLU_0(self.conv1(x))
+        x = self.conv2(x)
+        if self.down_type == "ave_pool":
+            x = avg_pool2d(x, 2, 2)
+        normx = x
+        x = self.conv4(self.conv3(x))
+        previous = x
+        outputs = []
+        for i in range(self.n_stack):
+            hg = getattr(self, f"m{i}")(previous)
+            ll = getattr(self, f"top_m_{i}")(hg)
+            ll = getattr(self, f"_NormReLU_{i + 1}")(
+                getattr(self, f"conv_last{i}")(ll))
+            out = getattr(self, f"l{i}")(ll)
+            outputs.append(out)
+            if i < self.n_stack - 1:
+                previous = (previous + getattr(self, f"bl{i}")(ll)
+                            + getattr(self, f"al{i}")(out))
+        return outputs, normx
