@@ -13,19 +13,32 @@ line each; any failure exits non-zero:
 4. main path: flagship-lite ``gen_mesh`` at 512^3 on the capsule subject,
    three times (warm-up + two timed), every field query through the
    kernel (launch count checked), OBJ checked;
-5. times (CUDA events) of the kernel and its plain version at the main
-   path's shapes, beside the card's bound for the same work.
+5. the served path: request directories written as PNG files, then the
+   resident server ``cli/serve`` as a subprocess twice — (a) flagship-lite
+   at full width, 512^3: a bad request, one subject twice (cold, warm), a
+   two-subject directory (``gen_mesh_many``); (b) ``bench_tiny`` (norm-free,
+   so its fine level runs ``fused_point_mlp``) with image colours, cleanup
+   and PLY — and one ``cli/run_recon`` batch call on (b)'s directory; the
+   launch counts each process reports are checked against its field
+   queries, the mesh files against the replies;
+6. times (CUDA events) of both kernels and their plain versions at the
+   full-width shapes, beside the card's bound for the same work.
+
+``fused_point_mlp`` is held against its plain version in phase 3 as well
+(f32 and bf16, both full-width norm-free chains and ``bench_tiny``'s).
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 ``kernels`` JSON line, and ``{"ok": true, "device": {...}}``.
 ``--profile`` adds one gen_mesh under ``torch.profiler`` and prints
-device time by kernel and the device's busy share.
+device time by kernel and the device's busy share.  ``--kernels-only``
+stops after the kernel checks and times (no ok line, exit code 1).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -44,6 +57,14 @@ TOL_F32 = 1e-4
 # the H100 (PERF.md, "Kernel against plain version").
 TOL_BF16_PRED = 2e-2
 TOL_BF16_PHI = 1.5e-1
+# fused_point_mlp, bf16, without the sigmoid: the same one-ulp steps, on a
+# head whose values are not squashed into [0, 1]; held relative to the
+# largest |value| of the plain version's output (set from the spread
+# measured on the H100: at most 0.0055 of it, PERF.md section 6).
+TOL_BF16_RAW_REL = 4e-2
+CKPT_TINY = os.path.join(HERE, "assets", "bench_tiny", "ckpt")
+FULL_SHAPES = (("coarse", (257, 1024, 512, 256, 128, 1), (2, 3, 4)),
+               ("fine", (272, 512, 256, 128, 1), (1, 2)))
 
 
 def fail(msg: str) -> None:
@@ -83,6 +104,7 @@ def main() -> None:
 
     # ---- 2. build (nvcc and g++ together)
     from rgbd_pifuhd_tpu_torch import native
+    from rgbd_pifuhd_tpu_torch.ops import fused_mlp as fm
     from rgbd_pifuhd_tpu_torch.ops import fused_query as fq
 
     t0 = time.time()
@@ -96,6 +118,7 @@ def main() -> None:
             errs.append((name, e))
 
     threads = [threading.Thread(target=run, args=("nvcc", fq.build)),
+               threading.Thread(target=run, args=("nvcc_mlp", fm.build)),
                threading.Thread(target=run, args=("g++", native.build_all))]
     for t in threads:
         t.start()
@@ -103,10 +126,12 @@ def main() -> None:
         t.join()
     if errs:
         fail(f"build failed: {errs[0][0]}: {errs[0][1]}")
-    ptxas = [ln.strip() for ln in (logs.get("nvcc") or "").splitlines()
+    ptxas = [ln.strip() for k in ("nvcc", "nvcc_mlp")
+             for ln in (logs.get(k) or "").splitlines()
              if "registers" in ln or "spill" in ln]
-    phase("build", f"fused_query.cu + marching.cc + meshio.cc built in "
-          f"{time.time() - t0:.1f} s; ptxas: {' || '.join(ptxas)}")
+    phase("build", f"fused_query.cu + fused_mlp.cu + marching.cc + "
+          f"meshio.cc built in {time.time() - t0:.1f} s; ptxas: "
+          f"{' || '.join(ptxas)}")
 
     # ---- model (weights for phases 3-5)
     from rgbd_pifuhd_tpu_torch.models import MultiResPIFu
@@ -128,22 +153,40 @@ def main() -> None:
 
     # ---- 3. kernel against plain version
     kres = kernel_checks(torch, fq, model, PointMLP, dev)
+    mres = mlp_kernel_checks(torch, fq, fm, PointMLP, dev)
 
     # ---- 4. main path
-    launches = main_path(torch, fq, model, opt, dev)
+    kernels_only = "--kernels-only" in sys.argv[1:]
+    launches = 0 if kernels_only else main_path(torch, fq, model, opt, dev)
 
+    served = {} if kernels_only else served_path()
+    mlp_launches = served.get("b", {}).get("fused_point_mlp", 0)
     if "--profile" in sys.argv[1:]:
         profile_gen_mesh(torch, model, opt, dev)
 
     # ---- 5. times
     timing = time_kernel(torch, fq, model, dev)
+    mtiming = time_mlp_kernel(torch, fq, fm, PointMLP, dev)
     kern = {"name": "fused_gather_mlp", "route": "cuda",
             "source": "rgbd_pifuhd_tpu_torch/csrc/fused_query.cu",
             "replaces": "rgbd_pifuhd_tpu/ops/pallas_query.py:286",
             "launches": launches, "max_abs_err": kres["main_err"],
             "tolerance": kres["main_tol"], **timing}
+    kern2 = {"name": "fused_point_mlp", "route": "cuda",
+             "source": "rgbd_pifuhd_tpu_torch/csrc/fused_mlp.cu",
+             "replaces": "rgbd_pifuhd_tpu/ops/pallas_mlp.py:51",
+             "launches": mlp_launches, "max_abs_err": mres["main_err"],
+             "tolerance": mres["main_tol"], **mtiming,
+             "launches_by_process": {k: v["fused_point_mlp"]
+                                     for k, v in served.items()}}
+    kern["launches_by_process"] = {
+        "in_memory_gen_mesh": launches,
+        **{k: v["fused_gather_mlp"] for k, v in served.items()}}
     print(smi_line)
-    print(json.dumps({"kernels": [kern]}))
+    print(json.dumps({"kernels": [kern, kern2]}))
+    if kernels_only:
+        sys.exit("--kernels-only: the main path and the served path were "
+                 "not driven, so no ok line")
     print(json.dumps({"ok": True, "device": device_info(torch)}))
 
 
@@ -328,6 +371,274 @@ def main_path(torch, fq, model, opt, dev) -> int:
     return launches
 
 
+# ------------------------------------------------------------ served path
+def _write_subject(root: str, stem: str, size: int, **shape) -> dict:
+    """One request subject as PNG files: ``<stem>.png``,
+    ``depth/depth_<stem>.png`` (8-bit) and ``<stem>_rect.txt`` (the whole
+    frame).  Returns the subject's bbox in the server's coordinates: the
+    reader's calib is a y flip, so the mesh comes out in NDC, y up."""
+    import numpy as np
+
+    from rgbd_pifuhd_tpu_torch.data.synthetic import capsule_subject
+    from rgbd_pifuhd_tpu_torch.utils.png import write_png
+
+    rgbd, calib, cv, _ = capsule_subject(size, **shape)
+    u8 = np.clip(np.rint((rgbd * 0.5 + 0.5) * 255.0), 0, 255).astype(np.uint8)
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    write_png(os.path.join(root, f"{stem}.png"), u8[:, :, :3])
+    write_png(os.path.join(root, "depth", f"depth_{stem}.png"), u8[:, :, 3:])
+    with open(os.path.join(root, f"{stem}_rect.txt"), "w") as f:
+        f.write(f"0 0 {size} {size}\n")
+    ndc = cv @ calib[:3, :3].T.astype(np.float64) + calib[:3, 3]
+    ndc[:, 1] *= -1.0
+    return {"lo": ndc.min(0), "hi": ndc.max(0)}
+
+
+class _Server:
+    """``cli/serve`` as a subprocess, driven line by line."""
+
+    def __init__(self, args, log_path):
+        self.log = open(log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "rgbd_pifuhd_tpu_torch.cli.serve"]
+            + args, cwd=HERE, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=self.log, text=True, bufsize=1)
+        self.log_path = log_path
+
+    def read(self, n: int = 1, timeout: float = 300.0) -> list:
+        """The next ``n`` JSON lines of the server's stdout."""
+        box: list = []
+
+        def pump():
+            while len(box) < n:
+                line = self.proc.stdout.readline()
+                if not line:
+                    return
+                if line.startswith("{"):
+                    box.append(json.loads(line))
+
+        t = threading.Thread(target=pump, daemon=True)
+        t.start()
+        t.join(timeout)
+        out = list(box)
+        if len(out) < n:
+            self.kill()
+            tail = open(self.log_path).read()[-2000:]
+            fail(f"server gave {len(out)} of {n} replies within {timeout} s"
+                 f" (exit {self.proc.poll()}); stderr: {tail}")
+        return out
+
+    def ask(self, request: str, n: int = 1):
+        """Send one request; returns its ``n`` replies and the seconds
+        until the last one arrived."""
+        t0 = time.time()
+        self.proc.stdin.write(request + "\n")
+        self.proc.stdin.flush()
+        replies = self.read(n)
+        return replies, time.time() - t0
+
+    def quit(self) -> dict:
+        (last,), _ = self.ask("quit")
+        rc = self.proc.wait(timeout=60)
+        self.log.close()
+        if rc != 0 or not last.get("quit"):
+            fail(f"server exit code {rc}, last line {last}")
+        return last["launches"]
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if not self.log.closed:
+            self.log.close()
+
+
+def _obj_positions(path: str, n_verts: int):
+    """Vertex positions and the face count of an OBJ whose vertex lines
+    come first (as the port writes them)."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    n_v = data.count(b"\nv ") + data.startswith(b"v ")
+    n_f = data.count(b"\nf ")
+    if n_v != n_verts:
+        fail(f"{path}: {n_v} vertex lines, the reply said {n_verts}")
+    pos = np.loadtxt(path, dtype=np.float32, usecols=(1, 2, 3),
+                     max_rows=n_v, comments=None)
+    return pos, n_f
+
+
+def _check_bbox(label, verts, box, tight: bool = False) -> None:
+    """The mesh holds the subject: its bbox covers the subject's centre
+    and, with ``tight`` (a model trained on this very subject), is the
+    subject's within a tenth of its height."""
+    import numpy as np
+
+    lo, hi = verts.min(0), verts.max(0)
+    centre = (box["lo"] + box["hi"]) / 2
+    slack = 0.1 * float(box["hi"][1] - box["lo"][1])
+    ok = np.isfinite(verts).all() and ((lo <= centre) & (centre <= hi)).all()
+    if tight:
+        ok = (ok and (np.abs(lo - box["lo"]) <= slack).all()
+              and (np.abs(hi - box["hi"]) <= slack).all())
+    if not ok:
+        fail(f"{label}: mesh bbox {lo}..{hi} does not hold the subject "
+             f"{box['lo']}..{box['hi']}")
+
+
+def served_path() -> dict:
+    """Phase 5.  Returns each process's launch counts: ``a`` (flagship-lite
+    server), ``b`` (bench_tiny server), ``run_recon``."""
+    import numpy as np
+
+    from rgbd_pifuhd_tpu_torch.recon.mesh import load_ply
+
+    t0 = time.time()
+    dir_a = os.path.join(OUT_DIR, "req_flagship")
+    dir_b = os.path.join(OUT_DIR, "req_tiny")
+    box_a = {"capsule": _write_subject(dir_a, "capsule", 1024),
+             "stout": _write_subject(dir_a, "stout", 1024, height=1.1,
+                                     radius=0.6)}
+    box_b = {"capsule": _write_subject(dir_b, "capsule", 128)}
+    phase("requests", f"3 subjects written as PNG in "
+          f"{time.time() - t0:.2f} s: {dir_a} (1024^2: capsule, stout), "
+          f"{dir_b} (128^2: capsule)")
+    results = os.path.join(OUT_DIR, "served")
+    counts = {}
+
+    # ---- (a) flagship-lite, full width, 512^3, fd colours, OBJ
+    t0 = time.time()
+    srv = _Server(["--load_netMR_checkpoint_path", CKPT, "--results_path",
+                   results, "--name", "a", "--resolution", "512",
+                   "--loadSize", "1024"],
+                  os.path.join(OUT_DIR, "serve_a.log"))
+    try:
+        (ready,) = srv.read(1)
+        if ready.get("ready") is not True or ready.get("device") != "cuda":
+            fail(f"(a) no ready line on cuda: {ready}")
+        t_ready = time.time() - t0
+        (bad,), _ = srv.ask(os.path.join(OUT_DIR, "no_such_dir"))
+        if "error" not in bad or "no_such_dir" not in bad["request"]:
+            fail(f"(a) a bad request was answered with {bad}")
+        (cold,), s_cold = srv.ask(f"{dir_a}::capsule")
+        pos_cold, _ = _obj_positions(cold["mesh"], cold["verts"])
+        (warm,), s_warm = srv.ask(f"{dir_a}::capsule")
+        pair, s_pair = srv.ask(dir_a, n=2)
+        counts["a"] = srv.quit()
+    finally:
+        srv.kill()
+    if [m.get("name") for m in pair] != ["capsule", "stout"]:
+        fail(f"(a) the directory request answered {pair}")
+    single, n_f = _obj_positions(warm["mesh"], warm["verts"])
+    _check_bbox("(a) capsule", single, box_a["capsule"])
+    o = np.lexsort(single.T)
+    oc = np.lexsort(pos_cold.T)
+    same_cold = single.shape == pos_cold.shape and bool(
+        (single[o] == pos_cold[oc]).all())
+    # the pair's file for "capsule" replaced the single request's
+    again, n_f2 = _obj_positions(pair[0]["mesh"], pair[0]["verts"])
+    o2 = np.lexsort(again.T)
+    if not (again.shape == single.shape and (again[o2] == single[o]).all()
+            and n_f2 == n_f and same_cold):
+        fail(f"(a) the two-subject request's capsule ({len(again)} verts, "
+             f"{n_f2} faces) is not the single request's ({len(single)}, "
+             f"{n_f}); cold == warm: {same_cold}")
+    stout, n_f3 = _obj_positions(pair[1]["mesh"], pair[1]["verts"])
+    _check_bbox("(a) stout", stout, box_a["stout"])
+    n = counts["a"]
+    if not (n["query_calls"] > 0 and n["fused_point_mlp"] == 0
+            and n["gather_concat"] == 0
+            and n["fused_gather_mlp"] == 2 * n["query_calls"]):
+        fail(f"(a) launch counts {n}: want 2 fused_gather_mlp per field "
+             f"query and no fused_point_mlp (GroupNorm model)")
+    phase("serve_a", json.dumps({
+        "model": "flagship-lite, bf16, mlp_norm group, 512^3, OBJ",
+        "ready_s": round(t_ready, 2),
+        "single_cold_s": round(s_cold, 3), "single_warm_s": round(s_warm, 3),
+        "single_warm_server_secs": warm["secs"],
+        "single_warm_read_secs": warm["read_secs"],
+        "bbox": [single.min(0).round(3).tolist(),
+                 single.max(0).round(3).tolist()],
+        "subject": [box_a["capsule"]["lo"].round(3).tolist(),
+                    box_a["capsule"]["hi"].round(3).tolist()],
+        "pair_s": round(s_pair, 3), "pair_per_mesh_s": round(s_pair / 2, 3),
+        "pair_server_secs": [m["secs"] for m in pair],
+        "verts": {"capsule": len(single), "stout": len(stout)},
+        "faces": {"capsule": n_f, "stout": n_f3},
+        "pair_capsule_equals_single": True, "launches": n}))
+
+    # ---- (b) bench_tiny (norm-free), image colours + cleanup, PLY
+    t0 = time.time()
+    srv = _Server(["--load_netMR_checkpoint_path", CKPT_TINY,
+                   "--results_path", results, "--name", "b", "--resolution",
+                   "512", "--loadSize", "128", "--use_color", "2",
+                   "--mesh_format", "ply"],
+                  os.path.join(OUT_DIR, "serve_b.log"))
+    try:
+        (ready,) = srv.read(1)
+        if ready.get("ready") is not True or ready.get("device") != "cuda":
+            fail(f"(b) no ready line on cuda: {ready}")
+        (cold,), s_cold = srv.ask(f"{dir_b}::capsule")
+        (warm,), s_warm = srv.ask(f"{dir_b}::capsule")
+        counts["b"] = srv.quit()
+    finally:
+        srv.kill()
+    if "mesh" not in warm or not warm["mesh"].endswith(".ply"):
+        fail(f"(b) reply {warm}")
+    v, f, c = load_ply(warm["mesh"])
+    if not (len(v) == warm["verts"] > 0 and len(f) > 0 and c is not None
+            and c.shape == v.shape and f.min() >= 0 and f.max() < len(v)):
+        fail(f"(b) PLY holds {len(v)} verts / {len(f)} faces, reply {warm}")
+    _check_bbox("(b) capsule", v, box_b["capsule"], tight=True)
+    ext = v.max(0) - v.min(0)
+    if not 2.0 < ext[1] / ext[0] < 3.0:
+        fail(f"(b) extents {ext}: not the capsule (height / width 2.45)")
+    n = counts["b"]
+    if not (n["fused_point_mlp"] == n["query_calls"] > 0
+            and n["gather_concat"] == n["query_calls"]
+            and n["fused_gather_mlp"] == n["query_calls"]):
+        fail(f"(b) launch counts {n}: want one fused_point_mlp (fine level) "
+             f"and one fused_gather_mlp (coarse level) per field query")
+    phase("serve_b", json.dumps({
+        "model": "bench_tiny, f32, mlp_norm none, 512^3, image colours + "
+                 "cleanup, PLY", "ready_s": round(time.time() - t0, 2),
+        "single_cold_s": round(s_cold, 3), "single_warm_s": round(s_warm, 3),
+        "single_warm_server_secs": warm["secs"],
+        "single_warm_read_secs": warm["read_secs"], "verts": len(v),
+        "faces": len(f), "extent": ext.round(3).tolist(),
+        "mean_colour": c.mean(0).round(3).tolist(), "launches": n,
+        "launches_per_mesh": n["fused_point_mlp"] // 2}))
+
+    # ---- run_recon on (b)'s directory, fd colours, OBJ
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, "-m", "rgbd_pifuhd_tpu_torch.cli.run_recon",
+         "--dataroot", dir_b, "--load_netMR_checkpoint_path", CKPT_TINY,
+         "--results_path", results, "--name", "batch", "--resolution", "512",
+         "--loadSize", "128", "--use_color", "0"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"run_recon exit {r.returncode}: {r.stderr[-2000:]}")
+    last = r.stdout.strip().splitlines()[-1]
+    if not last.startswith("launches "):
+        fail(f"run_recon's last line: {last}")
+    counts["run_recon"] = n = json.loads(last.split(" ", 1)[1])
+    obj = os.path.join(results, "batch", "recon", "result_capsule_512.obj")
+    pos, n_f = _obj_positions(obj, int(r.stdout.split("verts=")[1].split()[0]))
+    # fd-colour meshes stay in the reader's frame (NDC), as gen_mesh's do
+    _check_bbox("run_recon capsule", pos, box_b["capsule"], tight=True)
+    if not (n["fused_point_mlp"] == n["query_calls"] > 0):
+        fail(f"run_recon launch counts {n}")
+    phase("run_recon", json.dumps({
+        "model": "bench_tiny, 512^3, fd colours, OBJ",
+        "process_s": round(time.time() - t0, 2), "verts": len(pos),
+        "faces": n_f, "launches": n}))
+    for d in (dir_a, dir_b, results):
+        shutil.rmtree(d)
+    return counts
+
+
 def profile_gen_mesh(torch, model, opt, dev) -> None:
     """One more gen_mesh under torch.profiler: device time by kernel name
     and the device's busy share of the wall time."""
@@ -428,6 +739,206 @@ def time_kernel(torch, fq, model, dev) -> dict:
         "bound_bytes_ms": round(bound_bytes, 4), **res,
         "library": "none: no single PyTorch call computes this function"}))
     return res
+
+
+def _norm_free_mlp(torch, PointMLP, chans, res, cd, dev, seed):
+    """Seeded norm-free PointMLP whose activations stay O(1) through the
+    chain (std 1.4 / sqrt(fan_in) weights, 0.1 biases)."""
+    m = PointMLP(chans, 2, res, "none",
+                 dtype=None if cd == torch.float32 else cd, device=dev)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    with torch.no_grad():
+        for i in range(m.n_layers):
+            lin = getattr(m, f"dense{i}")
+            w = torch.randn(lin.weight.shape, generator=g) * (
+                1.4 / lin.weight.shape[1] ** 0.5)
+            lin.weight.copy_(w.to(dev))
+            lin.bias.copy_((torch.randn(lin.bias.shape, generator=g)
+                            * 0.1).to(dev))
+    m._packed.clear()
+    return m
+
+
+def _tiny_fine_mlps(torch, PointMLP, dev):
+    """bench_tiny's fine MLP (48-64-32-1, res (1)) with its trained
+    weights, as f32 and as bf16."""
+    from rgbd_pifuhd_tpu_torch.models import MultiResPIFu
+    from rgbd_pifuhd_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                        load_params)
+    from rgbd_pifuhd_tpu_torch.utils.options import Options
+
+    ckpt = load_checkpoint(CKPT_TINY, device=dev)
+    opt = Options.from_dict(ckpt["opt"])
+    model = MultiResPIFu(opt.netMR, opt.netG, device=dev)
+    load_params(model, ckpt["params"])
+    m32 = model.mlp
+    m16 = PointMLP(m32.filter_channels, m32.merge, m32.res_layers, "none",
+                   dtype=torch.bfloat16, device=dev)
+    m16.load_state_dict(m32.state_dict())
+    return m32, m16
+
+
+def mlp_kernel_checks(torch, fq, fm, PointMLP, dev) -> dict:
+    """fused_point_mlp against its plain version on the card."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    bad = []
+    main_err = 0.0
+    spread = {}
+
+    def check(label, m, x, cd, main=False):
+        nonlocal main_err
+        packed = m.packed()
+        for last_op in ("sigmoid", None):
+            kw = dict(res_layers=m.res_layers, last_op=last_op)
+            got = fm.fused_point_mlp(x, packed, **kw)
+            again = fm.fused_point_mlp(x, packed, **kw)
+            ref = fm.fused_point_mlp_ref(x, packed, **kw)
+            torch.cuda.synchronize()
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                fail(f"{label}: output shape/finiteness {tuple(got.shape)}")
+            if not torch.equal(got, again):
+                bad.append(f"{label} {last_op}: two launches differ")
+            err = float((got - ref).abs().max())
+            mag = float(ref.abs().max())
+            if cd == torch.float32:
+                tol = TOL_F32 * max(1.0, mag)
+            elif last_op == "sigmoid":
+                tol = TOL_BF16_PRED
+            else:
+                tol = TOL_BF16_RAW_REL * mag
+            ok = err <= tol
+            phase("check", f"fused_point_mlp {label} last_op={last_op}: "
+                  f"max|d| {err:.3e} (tol {tol:.3g}, max|ref| {mag:.3g}, "
+                  f"block {fm.fused_point_mlp.last_block}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(f"{label} {last_op}")
+            if cd == torch.bfloat16:
+                key = "sigmoid" if last_op else "raw_rel"
+                spread[key] = max(spread.get(key, 0.0),
+                                  err if last_op else err / max(mag, 1e-9))
+                if main and last_op == "sigmoid":
+                    main_err = max(main_err, err)
+
+    for name, chans, res in FULL_SHAPES:
+        for cd in (torch.float32, torch.bfloat16):
+            m = _norm_free_mlp(torch, PointMLP, chans, res, cd, dev, seed=5)
+            for N in (262144, 1000):
+                x = (torch.randn((N, chans[0]), generator=gen, device=dev)
+                     * 0.7).to(cd)
+                check(f"{name} {'-'.join(map(str, chans))} {cd} N={N}", m, x,
+                      cd, main=N == 262144)
+    m32, m16 = _tiny_fine_mlps(torch, PointMLP, dev)
+    for cd, m in ((torch.float32, m32), (torch.bfloat16, m16)):
+        for N in (262144, 1000):
+            x = (torch.randn((N, 48), generator=gen, device=dev) * 0.7).to(cd)
+            check(f"bench_tiny fine 48-64-32-1 {cd} N={N}", m, x, cd)
+    # the padded rows gather_concat hands over (C0 = 257 -> 264 columns)
+    name, chans, res = FULL_SHAPES[0]
+    m = _norm_free_mlp(torch, PointMLP, chans, res, torch.bfloat16, dev, 5)
+    feat, uv, extra = _level_inputs(torch, "coarse", 5000, dev, gen)
+    x0 = fq.gather_concat(feat.to(torch.bfloat16).contiguous(), uv, extra)
+    if x0.shape != (5000, 264) or float(x0[:, 257:].abs().max()) != 0.0:
+        fail(f"gather_concat: shape {tuple(x0.shape)} or non-zero padding")
+    x0_ref = torch.cat([fq.gather_ref(feat.to(torch.bfloat16), uv), extra],
+                       dim=-1).to(torch.bfloat16)
+    if not torch.equal(x0[:, :257], x0_ref):
+        bad.append("gather_concat differs from gather_ref")
+    check("coarse chain on gather_concat rows (ld 264)", m, x0,
+          torch.bfloat16)
+    with_gn = PointMLP((40, 64, 1), 1, (), "group", device=dev)
+    try:
+        fm.fused_point_mlp(torch.zeros((8, 40), device=dev),
+                           with_gn.packed(), res_layers=())
+        bad.append("a GroupNorm chain did not raise")
+    except ValueError:
+        pass
+    if bad:
+        fail(f"fused_point_mlp disagrees with its plain version: {bad}")
+    phase("kernels", json.dumps({
+        "kernel": "fused_point_mlp",
+        "replaces": "rgbd_pifuhd_tpu/ops/pallas_mlp.py:51",
+        "max_abs_err_bf16_sigmoid_main": main_err,
+        "tolerance": TOL_BF16_PRED, "bf16_spread": spread,
+        "launches_in_checks": fm.fused_point_mlp.launches}))
+    return {"main_err": main_err, "main_tol": TOL_BF16_PRED}
+
+
+def time_mlp_kernel(torch, fq, fm, PointMLP, dev) -> dict:
+    """Both full-width norm-free chains at N = 262144, bf16: the chain alone
+    through fused_point_mlp (and its plain version), and the level's whole
+    query by the two routes: gather + fused_point_mlp against
+    fused_gather_mlp (one launch per layer)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    N = 262144
+    rows = {}
+    for name, chans, res in FULL_SHAPES:
+        m = _norm_free_mlp(torch, PointMLP, chans, res, torch.bfloat16, dev,
+                           seed=5)
+        packed = m.packed()
+        feat, uv, extra = _level_inputs(torch, name, N, dev, gen)
+        feat = feat.to(torch.bfloat16).contiguous()
+        x0 = fq.gather_concat(feat, uv, extra)
+        kw = dict(res_layers=res)
+        # the two routes compute one function: hold them to each other
+        d = float((fm.fused_point_mlp(x0, packed, **kw)
+                   - fq.fused_gather_mlp(feat, uv, extra, packed,
+                                         merge_layer=-1, **kw)[0])
+                  .abs().max())
+        if not d <= TOL_BF16_PRED:
+            fail(f"{name}: the whole-chain route and the per-layer route "
+                 f"differ by {d:.3e} (tol {TOL_BF16_PRED:g})")
+        macs = sum(int(L.weight.numel()) for L in packed.layers)
+        flop = 2 * N * macs
+        w_bytes = sum(L.weight.numel() * 2 + L.bias.numel() * 4
+                      for L in packed.layers)
+        byts = N * chans[0] * 2 + w_bytes + N * chans[-1] * 4
+        r = {"macs_per_point": macs, "flop": flop, "bytes": byts,
+             "max_abs_diff_between_routes": d}
+        blocks = (64, 32) if name == "fine" else (32,)
+        for b in blocks:
+            r[f"chain_ms_block{b}"] = round(_event_ms(
+                torch, lambda: fm.fused_point_mlp(x0, packed, block=b, **kw),
+                10), 4)
+        r["chain_ms"] = round(_event_ms(
+            torch, lambda: fm.fused_point_mlp(x0, packed, **kw), 10), 4)
+        r["chain_block"] = fm.fused_point_mlp.last_block
+        r["chain_plain_ms"] = round(_event_ms(
+            torch, lambda: fm.fused_point_mlp_ref(x0, packed, **kw), 3), 4)
+        r["gather_plus_chain_ms"] = round(_event_ms(
+            torch, lambda: fm.fused_point_mlp(
+                fq.gather_concat(feat, uv, extra), packed, **kw), 10), 4)
+        r["per_layer_route_ms"] = round(_event_ms(
+            torch, lambda: fq.fused_gather_mlp(
+                feat, uv, extra, packed, merge_layer=-1, **kw), 10), 4)
+        r["chain_ms_again"] = round(_event_ms(
+            torch, lambda: fm.fused_point_mlp(x0, packed, **kw), 10), 4)
+        ops_ms = flop / PEAK_BF16 * 1e3
+        bytes_ms = byts / HBM_BPS * 1e3
+        r.update(bound_ops_ms=round(ops_ms, 4),
+                 bound_bytes_ms=round(bytes_ms, 4),
+                 tflops=round(flop / (min(r["chain_ms"], r["chain_ms_again"])
+                                      * 1e-3) / 1e12, 2))
+        rows[name] = r
+    phase("time", json.dumps({
+        "work": "norm-free chains, N=262144, bf16, seeded weights",
+        **rows, "library": "none: no single PyTorch call computes the "
+        "chain; chain_plain_ms is the plain per-layer chain"}))
+    f = rows["fine"]
+    return {"ms": min(f["chain_ms"], f["chain_ms_again"]),
+            "plain_ms": f["chain_plain_ms"],
+            "bound_ms": max(f["bound_ops_ms"], f["bound_bytes_ms"]),
+            "bound_by": "operations" if f["bound_ops_ms"]
+            >= f["bound_bytes_ms"] else "bytes",
+            "library_ms": None,
+            "shape": "fine 272-512-256-128-1, N=262144, bf16",
+            "coarse_shape_ms": min(rows["coarse"]["chain_ms"],
+                                   rows["coarse"]["chain_ms_again"]),
+            "coarse_shape_bound_ms": rows["coarse"]["bound_ops_ms"],
+            "coarse_shape_plain_ms": rows["coarse"]["chain_plain_ms"]}
 
 
 if __name__ == "__main__":

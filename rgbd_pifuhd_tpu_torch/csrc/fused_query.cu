@@ -31,8 +31,9 @@
 // the concat is never materialised.
 //
 // Rounding follows the JAX main path (models/mlp.py:55-68): a bf16 Dense
-// rounds its product to bf16 and adds the bias in bf16; GroupNorm and
-// leaky run in f32; the next Dense casts back to bf16; phi is f32.
+// rounds its product to bf16 and adds the bias in bf16; GroupNorm and the
+// leaky after it run in f32 (a norm-free layer's leaky in the compute
+// dtype); the next Dense casts back to bf16; phi is f32.
 //
 // Plain C interface for ctypes; every entry point returns
 // cudaGetLastError() after its launches.
@@ -96,6 +97,17 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 
 __device__ __forceinline__ float leaky(float v) {
   return v >= 0.f ? v : __fmul_rn(kSlope, v);
+}
+
+// leaky_relu of a norm-free layer's output, in the compute dtype as JAX
+// computes it: in bf16 the slope is rounded to bf16 first (0.010009765625)
+// and the product rounded after.
+template <typename T> __device__ __forceinline__ float leaky_plain(float v);
+template <> __device__ __forceinline__ float leaky_plain<float>(float v) {
+  return leaky(v);
+}
+template <> __device__ __forceinline__ float leaky_plain<bf16>(float v) {
+  return v >= 0.f ? v : round_to<bf16>(__fmul_rn(0.010009765625f, v));
 }
 
 // GroupNorm mean and scale*inv_std of channel c from a stats row.
@@ -275,9 +287,10 @@ __global__ void __launch_bounds__(NT) layer_kernel(const LayerParams p) {
             v[j] = 0.f;
           } else {
             if (p.norm_in == 2)
-              v[j] = __fadd_rn(
-                  __fmul_rn(__fsub_rn(v[j], s_mean[g]), s_mul[g]), s_add[g]);
-            if (p.norm_in >= 1) v[j] = leaky(v[j]);
+              v[j] = leaky(__fadd_rn(
+                  __fmul_rn(__fsub_rn(v[j], s_mean[g]), s_mul[g]), s_add[g]));
+            else if (p.norm_in == 1)
+              v[j] = leaky_plain<T>(v[j]);
           }
         }
       }
@@ -490,9 +503,10 @@ __global__ void __launch_bounds__(NT) act_kernel(
     const float* st = stats + ((int64_t)(r / seg_rows) * G + c / cg) * 2;
     float mean, mul;
     gn_coeffs(st, (float)seg_rows * (float)cg, gs[c], &mean, &mul);
-    v = __fadd_rn(__fmul_rn(__fsub_rn(v, mean), mul), gb[c]);
+    v = leaky(__fadd_rn(__fmul_rn(__fsub_rn(v, mean), mul), gb[c]));
+  } else if (mode == 1) {
+    v = leaky_plain<T>(v);
   }
-  if (mode >= 1) v = leaky(v);
   out[i] = v;
 }
 

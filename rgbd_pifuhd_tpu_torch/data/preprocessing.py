@@ -1,0 +1,100 @@
+"""Image preprocessing of the inference reader (port of
+``data/preprocessing.py``), NumPy only.
+
+``addrect`` is the zero-padded person-rect crop, ``rect_to_ndc_transform``
+the calibration of that crop, ``normalize_image`` the map to ``[-1, 1]``.
+``resize_image`` reproduces ``cv2.resize``'s default (``INTER_LINEAR``,
+half-pixel centres, no antialiasing) on uint8 images to within one grey
+level, with OpenCV's fixed-point scheme: 11-bit horizontal and vertical
+weights, the intermediate row sums kept as integers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def addrect(img: np.ndarray, rect) -> np.ndarray:
+    """Crop ``rect=(x, y, w, h)`` out of ``img``; out-of-frame regions are
+    black."""
+    x, y, w, h = [int(v) for v in rect]
+    H, W = img.shape[:2]
+    out = np.zeros((h, w) + img.shape[2:], dtype=img.dtype)
+    src_x0, src_y0 = max(x, 0), max(y, 0)
+    src_x1, src_y1 = min(x + w, W), min(y + h, H)
+    if src_x1 > src_x0 and src_y1 > src_y0:
+        dst_x0, dst_y0 = src_x0 - x, src_y0 - y
+        out[dst_y0:dst_y0 + (src_y1 - src_y0),
+            dst_x0:dst_x0 + (src_x1 - src_x0)] = (
+            img[src_y0:src_y1, src_x0:src_x1])
+    return out
+
+
+def rect_to_ndc_transform(rect, img_w: int, img_h: int,
+                          flip_y: bool = False) -> np.ndarray:
+    """4x4 NDC transform of a person-rect crop.  ``flip_y=False`` is the
+    inference reader's sign, ``True`` the training crop's."""
+    x, y, w, h = [int(v) for v in rect]
+    trans = np.identity(4)
+    scale_im2ndc = 1.0 / float(img_w // 2)
+    scale = img_w / w
+    trans *= scale
+    trans[3, 3] = 1.0
+    trans[0, 3] = -scale * (x + w // 2 - img_w // 2) * scale_im2ndc
+    sy = -1.0 if flip_y else 1.0
+    trans[1, 3] = sy * scale * (y + h // 2 - img_h // 2) * scale_im2ndc
+    return trans
+
+
+def normalize_image(img: np.ndarray) -> np.ndarray:
+    """HWC uint8 / float ``[0, 255]`` -> float32 HWC in ``[-1, 1]``."""
+    img = np.asarray(img, dtype=np.float32)
+    if img.max() > 1.5:
+        img = img / 255.0
+    return img * 2.0 - 1.0
+
+
+def _taps(n_dst: int, n_src: int):
+    """Left tap index and the fraction towards the right tap for each
+    destination coordinate (half-pixel centres, clamped at the borders)."""
+    f = (np.arange(n_dst, dtype=np.float64) + 0.5) * (n_src / n_dst) - 0.5
+    i0 = np.floor(f).astype(np.int64)
+    frac = (f - i0).astype(np.float32)
+    frac[i0 < 0] = 0.0
+    i0 = np.maximum(i0, 0)
+    frac[i0 >= n_src - 1] = 0.0
+    i0 = np.minimum(i0, n_src - 1)
+    return i0, np.minimum(i0 + 1, n_src - 1), frac
+
+
+def resize_image(img: np.ndarray, size: int) -> np.ndarray:
+    """Resize HWC (or HW) to ``(size, size)``, bilinear as ``cv2.resize``."""
+    a = np.asarray(img)
+    H, W = a.shape[:2]
+    if (H, W) == (size, size):
+        return a.copy()
+    y0, y1, fy = _taps(size, H)
+    x0, x1, fx = _taps(size, W)
+    flat = a.reshape(H, W, -1)
+    if a.dtype == np.uint8:
+        # OpenCV's 8-bit path: weights in 1/2048 units (rounded to
+        # nearest), horizontal sums as int32, then the vertical pass
+        # ((b0 * (s0 >> 4)) >> 16) + ((b1 * (s1 >> 4)) >> 16) + 2) >> 2
+        ax1 = np.rint(fx * 2048.0).astype(np.int32)
+        ax0 = np.rint((1.0 - fx) * 2048.0).astype(np.int32)
+        by1 = np.rint(fy * 2048.0).astype(np.int32)
+        by0 = np.rint((1.0 - fy) * 2048.0).astype(np.int32)
+        src = flat.astype(np.int32)
+        rows = (src[:, x0] * ax0[None, :, None]
+                + src[:, x1] * ax1[None, :, None])
+        s0, s1 = rows[y0] >> 4, rows[y1] >> 4
+        out = (((by0[:, None, None] * s0) >> 16)
+               + ((by1[:, None, None] * s1) >> 16) + 2) >> 2
+        out = np.clip(out, 0, 255).astype(np.uint8)
+    else:
+        src = flat.astype(np.float32)
+        rows = (src[:, x0] * (1.0 - fx)[None, :, None]
+                + src[:, x1] * fx[None, :, None])
+        out = (rows[y0] * (1.0 - fy)[:, None, None]
+               + rows[y1] * fy[:, None, None]).astype(a.dtype)
+    return out.reshape((size, size) + a.shape[2:])

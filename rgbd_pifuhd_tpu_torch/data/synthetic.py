@@ -1,7 +1,8 @@
 """Synthetic capsule subject (a NumPy copy of the parts of
-``rgbd_pifuhd_tpu/data/synthetic.py`` the port's smoke run needs): analytic
-meshes, height normalisation and placement, and the vectorised NumPy
-orthographic rasteriser.
+``rgbd_pifuhd_tpu/data/synthetic.py`` the port's smoke run and trained demo
+need): analytic meshes, height normalisation and placement, the vectorised
+NumPy orthographic rasteriser, and the training images' blurred-noise
+background.
 
 Conventions: ``calib`` maps world -> NDC ([-1, 1], y up); pixels follow the
 grid_sample convention (align_corners): u=-1 -> col 0, v=-1 -> row 0.
@@ -292,13 +293,38 @@ def capsule_calib(size: int, load_size: int, yaw: float = 0.0
     return uv @ intr @ extrinsic
 
 
-def capsule_subject(size: int = 512):
-    """The capsule (``make_capsule(1.6, 0.55, 3)``, 180 units tall, at
-    ``SUBJECT_CENTER``) rendered at ``size``^2, yaw 0.  Returns ``(rgbd
-    [size, size, 6] f32 in [-1, 1], calib [4, 4] f32, verts, faces)``:
-    RGB, then the depth map normalised as the dataset generator does
-    (``1 - z_norm`` on the silhouette, 0 off it) in all three channels."""
-    v, f = make_capsule(1.6, 0.55, 3)
+def blurred_noise_background(size: int, seed: int = 0) -> np.ndarray:
+    """``[size, size, 3]`` uint8 background of the training images: uniform
+    noise under a 31 x 31 Gaussian blur (sigma 5, OpenCV's default for that
+    kernel size; reflected borders) — near-flat mid gray.  The dataset
+    generator composites every training image onto such a background, so a
+    model trained on them has never seen the renderer's white."""
+    rng = np.random.default_rng(seed)
+    bg = rng.integers(0, 255, (size, size, 3), dtype=np.uint8).astype(
+        np.float64)
+    sigma = 0.3 * ((31 - 1) * 0.5 - 1.0) + 0.8
+    k = np.exp(-((np.arange(31) - 15.0) ** 2) / (2.0 * sigma * sigma))
+    k /= k.sum()
+    for axis in (0, 1):
+        pad = [(0, 0)] * 3
+        pad[axis] = (15, 15)
+        p = np.pad(bg, pad, mode="reflect")
+        bg = sum(k[i] * np.take(p, np.arange(i, i + size), axis=axis)
+                 for i in range(31))
+    return np.clip(np.rint(bg), 0, 255).astype(np.uint8)
+
+
+def capsule_subject(size: int = 512, height: float = 1.6,
+                    radius: float = 0.55):
+    """The capsule (``make_capsule(1.6, 0.55, 3)`` unless another shape is
+    asked for, 180 units tall, at ``SUBJECT_CENTER``) rendered at
+    ``size``^2, yaw 0, as the dataset generator's training image: the
+    shaded render composited onto ``blurred_noise_background``.  Returns
+    ``(rgbd [size, size, 6] f32 in
+    [-1, 1], calib [4, 4] f32, verts, faces)``: RGB, then the depth map
+    normalised as the generator does (``1 - z_norm`` on the silhouette, 0
+    off it) in all three channels."""
+    v, f = make_capsule(height, radius, 3)
     v = normalize_mesh_height(v, 180.0) + SUBJECT_CENTER
     calib = capsule_calib(size, size)
     out = rasterize_ortho(v, f, size, calib)
@@ -308,7 +334,8 @@ def capsule_subject(size: int = 512):
         zmin, zmax = z[m].min(), z[m].max()
         zn[m] = (z[m] - zmin) / max(zmax - zmin, 1e-9)
     depth = np.where(m, 1.0 - zn, 0.0)
-    rgbd = np.concatenate([out["rgb"], np.repeat(depth[:, :, None], 3, 2)],
-                          axis=-1)
+    rgb = np.where(m[:, :, None], out["rgb"],
+                   blurred_noise_background(size) / 255.0)
+    rgbd = np.concatenate([rgb, np.repeat(depth[:, :, None], 3, 2)], axis=-1)
     return ((rgbd * 2.0 - 1.0).astype(np.float32), calib.astype(np.float32),
             v, f)

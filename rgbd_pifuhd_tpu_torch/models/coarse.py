@@ -14,7 +14,8 @@ import torch
 import torch.nn as nn
 
 from ..ops import geometry as geom
-from ..ops.fused_query import fused_gather_mlp
+from ..ops.fused_mlp import fused_point_mlp
+from ..ops.fused_query import fused_gather_mlp, gather_concat
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.options import PIFuLevelConfig
 from .blocks import HGFilter
@@ -42,17 +43,27 @@ def level_dtype(cfg: PIFuLevelConfig) -> torch.dtype | None:
 
 def query_mlp(mlp: PointMLP, feat: torch.Tensor, uv: torch.Tensor,
               extra: torch.Tensor, merge_layer: int):
-    """Fused gather + MLP per batch item: ``feat [B, h, w, C]``, ``uv
+    """Gather + MLP per batch item: ``feat [B, h, w, C]``, ``uv
     [B, N, 2]``, ``extra [B, N, E]`` -> ``(pred [B, N, 1], phi or None)``.
-    GroupNorm pools over each call's N points, as flax does per batch
-    item inside the JAX main path."""
+
+    A norm-free MLP that owes no ``phi`` (the fine level) takes the gather
+    and then ``fused_point_mlp``, the whole chain in one launch.  Every
+    other case takes ``fused_gather_mlp``: GroupNorm pools over each call's
+    N points, as flax does per batch item inside the JAX main path."""
     packed = mlp.packed()
+    whole_chain = mlp.norm == "none" and merge_layer < 0
     preds, phis = [], []
     for b in range(feat.shape[0]):
-        pred, phi = fused_gather_mlp(
-            feat[b].to(packed.compute_dtype).contiguous(),
-            uv[b].float().contiguous(), extra[b].float().contiguous(),
-            packed, res_layers=mlp.res_layers, merge_layer=merge_layer)
+        f = feat[b].to(packed.compute_dtype).contiguous()
+        u, e = uv[b].float().contiguous(), extra[b].float().contiguous()
+        if whole_chain:
+            pred, phi = fused_point_mlp(
+                gather_concat(f, u, e), packed, res_layers=mlp.res_layers,
+                last_op=mlp.last_op), None
+        else:
+            pred, phi = fused_gather_mlp(
+                f, u, e, packed, res_layers=mlp.res_layers,
+                merge_layer=merge_layer)
         preds.append(pred)
         phis.append(phi)
     phi = None if phis[0] is None else torch.stack(phis)

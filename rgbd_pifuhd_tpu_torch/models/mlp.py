@@ -7,7 +7,8 @@ layers packed once by ``packed()``.
 
 Rounding of a ``dtype`` (bf16) layer, as flax ``Dense(dtype=bf16)``: the
 product is rounded to bf16, then the bias is added in bf16.  GroupNorm
-(f32 params) promotes to f32; leaky runs in that dtype.
+(f32 params) promotes to f32; leaky runs in the dtype it is given, with
+the slope 0.01 rounded to that dtype (bf16 for a norm-free bf16 chain).
 """
 
 from __future__ import annotations
@@ -57,6 +58,15 @@ class PointMLP(nn.Module):
         y = F.linear(x.to(self.dtype), lin.weight.to(self.dtype))
         return y + lin.bias.to(self.dtype)
 
+    @staticmethod
+    def _leaky(y: torch.Tensor) -> torch.Tensor:
+        """leaky_relu(0.01) in ``y``'s dtype as JAX computes it: the slope
+        is rounded to that dtype first (torch's own multiplies in f32)."""
+        if y.dtype == torch.float32:
+            return F.leaky_relu(y, 0.01)
+        slope = torch.tensor(0.01, dtype=y.dtype, device=y.device)
+        return torch.where(y >= 0, y, (slope.float() * y.float()).to(y.dtype))
+
     def forward(self, feature: torch.Tensor):
         y = feature
         phi = None
@@ -67,7 +77,7 @@ class PointMLP(nn.Module):
             if i != self.n_layers - 1:
                 if self.norm == "group":
                     y = getattr(self, f"norm{i}")(y)
-                y = F.leaky_relu(y, 0.01)
+                y = self._leaky(y)
             if i == self.merge:
                 phi = y
         if self.last_op == "sigmoid":

@@ -36,13 +36,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "fused_query.cu")
 _BUILD = os.path.join(_PKG, "_build")
 _SO = os.path.join(_BUILD, "libfused_query.so")
-_LOCK = threading.Lock()
+_LOCKS: dict = {}
 _LIB: list = []
 
 BM = 64             # point rows per block tile of the layer kernel
 MAXK_NORM = 1024    # widest normalised layer the kernel's prologue holds
 EPS = 1e-5
 SLOPE = 0.01
+SLOPE_BF16 = 0.010009765625     # 0.01 rounded to bf16
 
 
 # ------------------------------------------------------------- packing
@@ -169,7 +170,13 @@ def group_norm_ref(h32: torch.Tensor, scale, bias, num_groups: int,
     return y.reshape(N, C)
 
 
-def _leaky(x: torch.Tensor) -> torch.Tensor:
+def _leaky(x: torch.Tensor, dtype: torch.dtype = torch.float32):
+    """leaky_relu(0.01) of f32 ``x`` as JAX computes it in ``dtype``: in
+    bf16 the slope is rounded to bf16 first and the product rounded after
+    (``x`` then holds bf16 values; a norm-free bf16 chain).  After
+    GroupNorm the activation is f32 whatever the compute dtype."""
+    if dtype == torch.bfloat16:
+        return torch.where(x >= 0, x, _round(SLOPE_BF16 * x, dtype))
     return torch.where(x >= 0, x, SLOPE * x)
 
 
@@ -196,9 +203,10 @@ def fused_gather_mlp_ref(feat, uv, extra, layers: PackedMLP, *,
                 phi = y
             break
         if L.gn_scale is not None:
-            y = group_norm_ref(y, L.gn_scale, L.gn_bias, num_groups,
-                               gn_scope)
-        y = _leaky(y)
+            y = _leaky(group_norm_ref(y, L.gn_scale, L.gn_bias, num_groups,
+                                      gn_scope))
+        else:
+            y = _leaky(y, cd)
         if i == merge_layer:
             phi = y
         h = y.to(cd)
@@ -224,28 +232,33 @@ def _nvcc() -> str:
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: cannot build the fused_query kernel")
+    raise RuntimeError("nvcc not found: cannot build the CUDA kernels")
 
 
-def build() -> str:
-    """Compile ``csrc/fused_query.cu`` into ``_build/`` (nvcc, sm_90a).
-    Returns the compiler's output (``-Xptxas -v``: registers, spills);
-    raises if the build fails."""
-    with _LOCK:
-        if (os.path.exists(_SO)
-                and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
+def build_cuda(src: str, so: str) -> str:
+    """Compile one CUDA source into ``_build/`` (nvcc, sm_90a) unless the
+    library is newer than the source.  Returns the compiler's output
+    (``-Xptxas -v``: registers, spills); raises if the build fails."""
+    with _LOCKS.setdefault(so, threading.Lock()):
+        if (os.path.exists(so)
+                and os.path.getmtime(so) >= os.path.getmtime(src)):
             return ""
         os.makedirs(_BUILD, exist_ok=True)
-        tmp = f"{_SO}.{os.getpid()}.tmp"
+        tmp = f"{so}.{os.getpid()}.tmp"
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", tmp, _SRC]
+               "-Xptxas", "-v", "-o", tmp, src]
         r = subprocess.run(cmd, capture_output=True, text=True)
         if r.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({r.returncode}):\n{r.stdout}\n{r.stderr}")
-        os.replace(tmp, _SO)
+        os.replace(tmp, so)
         return r.stdout + r.stderr
+
+
+def build() -> str:
+    """Compile ``csrc/fused_query.cu``; see ``build_cuda``."""
+    return build_cuda(_SRC, _SO)
 
 
 def _lib():
@@ -430,3 +443,42 @@ def fused_gather_mlp(feat: torch.Tensor, uv: torch.Tensor,
 
 
 fused_gather_mlp.launches = 0
+
+
+def gather_concat(feat: torch.Tensor, uv: torch.Tensor,
+                  extra: torch.Tensor) -> torch.Tensor:
+    """The kernel's gather on its own: ``feat [H, W, C]``, ``uv [N, 2]``
+    f32, ``extra [N, E]`` f32 -> ``x0 [N, r8(C + E)]`` in ``feat``'s dtype
+    (gathered channels, then ``extra``, then zero padding to a multiple of
+    8), the input of ``ops.fused_mlp.fused_point_mlp``.  A CPU tensor takes
+    ``gather_ref``; a CUDA tensor launches ``gather_kernel`` or raises."""
+    H, W, C = feat.shape
+    N, E = extra.shape
+    K0p = _r8(C + E)
+    if feat.device.type == "cpu":
+        x0 = torch.zeros((N, K0p), dtype=feat.dtype)
+        x0[:, :C + E] = torch.cat([gather_ref(feat, uv), extra.float()],
+                                  dim=-1).to(feat.dtype)
+        return x0
+    if feat.device.type != "cuda":
+        raise ValueError(f"unsupported device {feat.device}")
+    if feat.dtype not in _DTYPE_CODE:
+        raise ValueError(f"unsupported compute dtype {feat.dtype}")
+    for name, t, dt in (("feat", feat, feat.dtype),
+                        ("uv", uv, torch.float32),
+                        ("extra", extra, torch.float32)):
+        if t.device != feat.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dt} tensor on "
+                             f"{feat.device}")
+    if uv.shape != (N, 2) or N == 0:
+        raise ValueError("expected uv [N, 2] and extra [N, E] with N > 0")
+    x0 = torch.empty((N, K0p), dtype=feat.dtype, device=feat.device)
+    _check(_lib().fq_gather(
+        _DTYPE_CODE[feat.dtype], feat.data_ptr(), H, W, C, uv.data_ptr(),
+        extra.data_ptr(), E, x0.data_ptr(), K0p, N,
+        torch.cuda.current_stream(feat.device).cuda_stream), "gather")
+    gather_concat.launches += 1
+    return x0
+
+
+gather_concat.launches = 0

@@ -1,36 +1,46 @@
-"""Single-subject mesh reconstruction (port of ``recon/pipeline.py``'s main
-path, ``Reconstructor.gen_mesh``).
+"""Mesh reconstruction (port of ``recon/pipeline.py``): ``gen_mesh``
+(fd-normal colours), ``gen_mesh_img_color`` (image colours, optional
+largest-component cleanup and back-colour inpainting) and the two-slot
+multi-subject ``gen_mesh_many``.
 
 encode (normal nets + both hourglass encoders) -> three-level octree field
 evaluation on the device -> 4-bit sparse pull -> native marching ->
-fd-normal vertex colours on the device -> streamed OBJ write.  With
-``opt.streamed_recon`` (default) phase 3 is dispatched in bands and marched
-as they land (``recon/streamed.py``).
+vertex colours on the device -> OBJ (streamed) or binary PLY, and the
+montage PNG (input and predicted normal maps) beside the mesh.  With
+``opt.streamed_recon`` (default) ``gen_mesh`` dispatches phase 3 in bands
+and marches them as they land (``recon/streamed.py``).
 
 Every field query — all octree phases and the four fd taps of the
-colouring — goes through ``ops.fused_query.fused_gather_mlp`` twice
-(coarse level, fine level).  Host transfers use pinned buffers and one
-CUDA event per transfer, so the host marches and writes while the device
-computes.
+colouring — makes two kernel calls: the coarse level through
+``ops.fused_query.fused_gather_mlp`` (it owes ``phi``), the fine level
+through the same kernel, or through ``ops.fused_mlp.fused_point_mlp`` when
+its MLP is norm-free (``models.coarse.query_mlp``).  Host transfers use
+pinned buffers and one CUDA event per transfer, so the host marches and
+writes while the device computes.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import os
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from ..models.multires import MultiResPIFu
 from ..native import load_meshio
+from ..ops import geometry as geom
 from ..utils.device import resolve_device
 from ..utils.options import Options
+from ..utils.png import write_png
 from . import grid as grid_mod
 from .marching import marching_tetrahedra_sparse3
-from .mesh import format_faces_block
+from .mesh import (format_faces_block, keep_largest_component,
+                   save_obj_with_color, save_ply_with_color)
 
 
 def _round_up(x: int, q: int) -> int:
@@ -117,24 +127,27 @@ class Reconstructor:
         self.opt = opt
         self.last_grid_diag: dict | None = None
         self._esc_budgets: dict[int, dict] = {}
-        self.query_calls = 0
+        self.query_calls = 0            # of the newest mesh
+        self.total_query_calls = 0      # since construction
         self.points_queried: dict[str, int] = {}
         self.host_secs: dict[str, float] = {}
         self._phase = "field"
 
     @contextlib.contextmanager
-    def timed(self, name: str):
-        """Accumulate host seconds spent in ``name`` (``host_secs``)."""
+    def timed(self, name: str, sink: dict | None = None):
+        """Accumulate host seconds spent in ``name`` into ``sink``
+        (default ``host_secs``)."""
+        sink = self.host_secs if sink is None else sink
         t = time.perf_counter()
         try:
             yield
         finally:
-            self.host_secs[name] = (self.host_secs.get(name, 0.0)
-                                    + time.perf_counter() - t)
+            sink[name] = sink.get(name, 0.0) + time.perf_counter() - t
 
     # ------------------------------------------------------------- query
     def _count(self, n_points: int) -> None:
         self.query_calls += 1
+        self.total_query_calls += 1
         self.points_queried[self._phase] = (
             self.points_queried.get(self._phase, 0) + n_points)
 
@@ -151,6 +164,23 @@ class Reconstructor:
         l_feats = self.model.filter_local(img_local[None], g_feats,
                                           last_only=True)
         return l_feats, g_feats
+
+    def _montage_start(self, data: dict, feats):
+        """Queue the montage strip — the global image's RGB and the
+        predicted normal maps side by side, quantised to uint8 on the
+        device — and its copy to the host; returns ``(host, landed)``."""
+        _, g_feats = feats
+        panels = [self._tensor(data["img_512"])[0][..., :3]]
+        panels += [m[0].float() for m in (g_feats.nml_front,
+                                          g_feats.nml_back) if m is not None]
+        return _to_host(_quantize_colors(torch.cat(panels, dim=1)))
+
+    @staticmethod
+    def _write_montage(montage, save_path: str) -> None:
+        """The montage PNG beside the mesh (``<mesh stem>.png``)."""
+        host, landed = montage
+        landed.wait()
+        write_png(save_path[:-4] + ".png", host.numpy())
 
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         if not isinstance(x, torch.Tensor):
@@ -319,11 +349,11 @@ class Reconstructor:
         vq, lo, scale = self._quantize_u16(block, k * self._COLOR_CHUNK)
         return self._normals_dispatch(vq, lo, scale, feats, calib)
 
-    def color_by_normals_start(self, verts: np.ndarray, feats,
-                               calib: torch.Tensor) -> _ColorJob:
+    def _chunked_start(self, dispatch, verts: np.ndarray) -> _ColorJob:
         """Quantise all verts on the mesh bbox, pad to K chunks (a multiple
-        of 4 above 4) and dispatch them in up to 4 groups, each landing in
-        its own pinned buffer; the job pulls as groups land."""
+        of 4 above 4) and hand them to ``dispatch(vq, lo, scale)`` in up to
+        4 groups, each landing in its own pinned buffer; the job pulls as
+        groups land."""
         V = len(verts)
         if V == 0:
             return _ColorJob([], 0)
@@ -333,10 +363,66 @@ class Reconstructor:
             K = -(-K // 4) * 4
         vq, lo, scale = self._quantize_u16(verts, K * chunk)
         rows = (K // 4 if K > 4 else K) * chunk
-        parts = [self._normals_dispatch(vq[s:s + rows], lo, scale, feats,
-                                        calib)
+        parts = [dispatch(vq[s:s + rows], lo, scale)
                  for s in range(0, K * chunk, rows)]
         return _ColorJob(parts, V)
+
+    def color_by_normals_start(self, verts: np.ndarray, feats,
+                               calib: torch.Tensor) -> _ColorJob:
+        """Dispatch fd-normal colouring of all verts."""
+        return self._chunked_start(
+            lambda vq, lo, sc: self._normals_dispatch(vq, lo, sc, feats,
+                                                      calib), verts)
+
+    def _img_color_dispatch(self, vq: np.ndarray, lo, scale,
+                            image: torch.Tensor, calib: torch.Tensor):
+        """Queue image colours of u16-quantised verts: project, sample the
+        RGB channels of ``image [H, W, C]`` bilinearly, quantise."""
+        chunk = self._COLOR_CHUNK
+        vq_d = self._upload(vq.view(np.int16)).to(torch.int32) & 0xFFFF
+        lo_d, scale_d = self._upload(lo), self._upload(scale)
+        cols = []
+        for j in range(len(vq) // chunk):
+            verts = _dequantize_verts(vq_d[j * chunk:(j + 1) * chunk],
+                                      lo_d, scale_d)
+            xyz = geom.orthogonal(verts[None], calib[None])
+            cols.append(_quantize_colors(
+                geom.index(image[None], xyz[..., :2])[0][:, :3]))
+        return _to_host(torch.cat(cols))
+
+    def color_by_image(self, verts: np.ndarray, image,
+                       calib) -> np.ndarray:
+        """Project verts into ``image [H, W, C]`` and sample colours."""
+        with torch.inference_mode():
+            image, calib = self._tensor(image), self._tensor(calib)
+            return self._chunked_start(
+                lambda vq, lo, sc: self._img_color_dispatch(
+                    vq, lo, sc, image, calib), verts)()
+
+    def _sample_img_colors_start(self, verts, data, cleanup: bool):
+        """Dispatch the device part of image colouring (colour gather and,
+        for the cleanup, projected coords); returns ``finish() -> (colors,
+        xyz_proj)``, which only waits for the copies to land and so may run
+        on a worker thread."""
+        image = self._tensor(data["img"])[0]
+        calib = self._tensor(data["calib"])
+        job = self._chunked_start(
+            lambda vq, lo, sc: self._img_color_dispatch(vq, lo, sc, image,
+                                                        calib), verts)
+        xyz_host = None
+        if cleanup:     # projected coords feed the back-colour inpainting
+            xyz_host = _to_host(geom.orthogonal(
+                self._upload(np.asarray(verts, np.float32))[None],
+                calib[None])[0])
+
+        def finish():
+            colors = job()
+            if xyz_host is None:
+                return colors, None
+            xyz_host[1].wait()
+            return colors, xyz_host[0].numpy()
+
+        return finish
 
     # -------------------------------------------------------------- export
     @staticmethod
@@ -365,77 +451,334 @@ class Reconstructor:
         if not ok or rc != 0:
             raise OSError(f"OBJ write to {save_path} failed")
 
-    def _export_mesh(self, save_path, verts, job, faces_blob):
+    def _export_mesh(self, save_path, verts, faces, job, faces_blob=None):
+        """Binary PLY, or the streamed OBJ.  ``job`` is the colour job;
+        ``faces_blob`` the preformatted OBJ face block."""
         if save_path.endswith(".ply"):
-            lib, buf, _ = faces_blob
-            lib.meshio_free(buf)
-            raise ValueError("PLY export is not ported yet")
-        self._write_obj_streamed(save_path, verts, job, faces_blob)
+            save_ply_with_color(save_path, verts, faces, job())
+        else:
+            self._write_obj_streamed(save_path, verts, job, faces_blob)
 
-    def _finish_normals(self, verts, faces, feats, calib, save_path,
-                        job=None) -> dict:
+    def _finish_normals(self, verts, faces, save_path, montage, job,
+                        sink: dict | None = None) -> dict:
+        """Host tail of a normal-coloured mesh: face formatting and the
+        montage while the device computes the colours, then the export."""
         t0 = time.time()
-        if job is None:
-            job = self.color_by_normals_start(verts, feats, calib)
-        with self.timed("faces"):
-            faces_blob = format_faces_block(faces)
+        faces_blob = None
+        if not save_path.endswith(".ply"):
+            with self.timed("faces", sink):
+                faces_blob = format_faces_block(faces)
+        with self.timed("montage", sink):
+            self._write_montage(montage, save_path)
         t1 = time.time()
-        with self.timed("obj_write"):
-            self._export_mesh(save_path, verts, job, faces_blob)
+        with self.timed("mesh_write", sink):
+            self._export_mesh(save_path, verts, faces, job, faces_blob)
         return {"verts": verts, "faces": faces,
-                "finish_phases": {"faces": round(t1 - t0, 4),
-                                  "color_and_obj": round(time.time() - t1,
-                                                         4)}}
+                "finish_phases": {"faces_and_montage": round(t1 - t0, 4),
+                                  "color_and_write": round(time.time() - t1,
+                                                           4)}}
+
+    def _finish_img_color_host(self, verts, faces, colors, xyz_proj, data,
+                               save_path, cleanup: bool, montage) -> dict:
+        """Host part of image colouring: world mapping, cleanup,
+        inpainting, export, montage."""
+        if data.get("calib_world") is not None:
+            cw_inv = np.linalg.inv(np.asarray(data["calib_world"],
+                                              np.float64))
+            verts = verts @ cw_inv[:3, :3].T + cw_inv[:3, 3]
+        if cleanup:
+            verts, faces, packed = keep_largest_component(
+                verts, faces, np.concatenate([colors, xyz_proj], 1))
+            colors = estimate_back_colors(packed[:, :3], packed[:, 3:6])
+        if save_path.endswith(".ply"):
+            save_ply_with_color(save_path, verts, faces, colors)
+        else:
+            save_obj_with_color(save_path, verts, faces, colors)
+        self._write_montage(montage, save_path)
+        return {"verts": verts, "faces": faces}
+
+    # --------------------------------------------------------- reconstruct
+    def _calibs(self, data):
+        calib_np = np.asarray(
+            data["calib"].cpu() if isinstance(data["calib"], torch.Tensor)
+            else data["calib"], np.float32)
+        return self._tensor(calib_np), calib_np
+
+    def _require_octree(self, use_octree) -> None:
+        if not (self.opt.use_octree if use_octree is None else use_octree):
+            raise ValueError("the dense (non-octree) path is not ported")
+
+    def _begin(self) -> None:
+        self.query_calls = 0
+        self.points_queried = {}
+        self.host_secs = {}
+
+    def _counters(self) -> dict:
+        return dict(points_queried=dict(self.points_queried),
+                    query_calls=self.query_calls,
+                    host_secs={k: round(v, 4)
+                               for k, v in self.host_secs.items()})
+
+    def _encode_subject(self, data: dict):
+        """``(calib, its host copy, feats, montage)``; the montage strip is
+        queued right behind the encoders, ahead of the field evaluation, so
+        its copy has long landed when the host writes it."""
+        calib, calib_np = self._calibs(data)
+        with self.timed("encode"):
+            feats = self.encode(self._tensor(data["img"]),
+                                self._tensor(data["img_512"]))
+            montage = self._montage_start(data, feats)
+        return calib, calib_np, feats, montage
+
+    def _march_one_shot(self, feats, calib, calib_np, res: int):
+        """One-shot field evaluation, then marching: world verts, faces."""
+        field = self.evaluate_field(feats[0], feats[1], calib, res)
+        with self.timed("march"):
+            verts_idx, faces = marching_tetrahedra_sparse3(
+                *field, res, algorithm=self.opt.marching_algo)
+        if len(verts_idx) == 0:
+            raise RuntimeError("marching produced an empty mesh")
+        return self._to_world(verts_idx, faces, calib_np, res)
+
+    def _device_stage_normals(self, data: dict, res: int):
+        """Everything of a normal-coloured mesh that launches kernels (and
+        the marching between the launches): ``(verts, faces, montage,
+        colour job)``."""
+        from .streamed import reconstruct_streamed
+
+        calib, calib_np, feats, montage = self._encode_subject(data)
+        if (getattr(self.opt, "octree_levels", 3) == 3 and res % 8 == 0
+                and getattr(self.opt, "streamed_recon", True)):
+            verts, faces, job, _ = reconstruct_streamed(
+                self, res, calib, calib_np, feats)
+            if len(verts) == 0:
+                raise RuntimeError("marching produced an empty mesh")
+        else:
+            verts, faces = self._march_one_shot(feats, calib, calib_np, res)
+            job = self.color_by_normals_start(verts, feats, calib)
+        return verts, faces, montage, job
+
+    def _device_stage_img(self, data: dict, res: int, cleanup: bool):
+        """The same for an image-coloured mesh: ``(verts, faces, montage,
+        finish)``, ``finish() -> (colors, xyz_proj)`` only waiting."""
+        calib, calib_np, feats, montage = self._encode_subject(data)
+        verts, faces = self._march_one_shot(feats, calib, calib_np, res)
+        return verts, faces, montage, self._sample_img_colors_start(
+            verts, data, cleanup)
+
+    def _host_stage(self, stage, data, save_path, use_color: int,
+                    sink: dict | None = None) -> dict:
+        """The host tail of either stage (``gen_mesh_many`` runs it on its
+        worker): waits for copies to land, formats, cleans up, writes."""
+        if use_color == 0:
+            verts, faces, montage, job = stage
+            return self._finish_normals(verts, faces, save_path, montage,
+                                        job, sink)
+        verts, faces, montage, finish = stage
+        colors, xyz_proj = finish()
+        with self.timed("finish_host", sink):
+            return self._finish_img_color_host(
+                verts, faces, colors, xyz_proj, data, save_path,
+                use_color == 2, montage)
+
+    def reconstruct(self, data: dict, resolution: int | None = None,
+                    use_octree: bool | None = None):
+        """Field -> world-space mesh: ``(verts, faces, feats)``."""
+        self._require_octree(use_octree)
+        res = resolution or self.opt.resolution
+        with torch.inference_mode():
+            calib, calib_np = self._calibs(data)
+            with self.timed("encode"):
+                feats = self.encode(self._tensor(data["img"]),
+                                    self._tensor(data["img_512"]))
+            verts, faces = self._march_one_shot(feats, calib, calib_np, res)
+        return verts, faces, feats
 
     # ------------------------------------------------------------ gen_mesh
     def gen_mesh(self, data: dict, save_path: str, resolution=None,
                  use_octree=None) -> dict:
-        """Normal-coloured mesh of one subject, written as OBJ.
+        """Normal-coloured mesh of one subject, written as OBJ or PLY.
 
         ``data``: ``img [B2, H, W, 6]`` local windows, ``img_512
         [1, h, w, 6]`` global image, ``calib [4, 4]`` (NumPy or tensors).
         Returns verts, faces, secs, grid_diag and a ``phases`` breakdown.
         """
-        from .streamed import reconstruct_streamed
-
         t0 = time.time()
+        self._require_octree(use_octree)
         res = resolution or self.opt.resolution
-        use_oct = self.opt.use_octree if use_octree is None else use_octree
-        if not use_oct:
-            raise ValueError("the dense (non-octree) path is not ported")
-        self.query_calls = 0
-        self.points_queried = {}
-        self.host_secs = {}
+        self._begin()
         with torch.inference_mode():
-            calib_np = np.asarray(
-                data["calib"].cpu() if isinstance(data["calib"], torch.Tensor)
-                else data["calib"], np.float32)
-            calib = self._tensor(calib_np)
-            with self.timed("encode"):
-                feats = self.encode(self._tensor(data["img"]),
-                                    self._tensor(data["img_512"]))
-            if (getattr(self.opt, "octree_levels", 3) == 3 and res % 8 == 0
-                    and getattr(self.opt, "streamed_recon", True)):
-                verts, faces, job, _ = reconstruct_streamed(
-                    self, res, calib, calib_np, feats)
-            else:
-                field = self.evaluate_field(feats[0], feats[1], calib, res)
-                verts_idx, faces = marching_tetrahedra_sparse3(
-                    *field, res, algorithm=self.opt.marching_algo)
-                verts, faces = self._to_world(verts_idx, faces, calib_np,
-                                              res)
-                job = None
-            if len(verts) == 0:
-                raise RuntimeError("marching produced an empty mesh")
+            stage = self._device_stage_normals(data, res)
             t1 = time.time()
-            out = self._finish_normals(verts, faces, feats, calib, save_path,
-                                       job=job)
+            out = self._host_stage(stage, data, save_path, 0)
         t2 = time.time()
         out.update(secs=t2 - t0, grid_diag=self.last_grid_diag,
                    phases={"reconstruct": round(t1 - t0, 4),
                            "color_save": round(t2 - t1, 4)},
-                   points_queried=dict(self.points_queried),
-                   query_calls=self.query_calls,
-                   host_secs={k: round(v, 4)
-                              for k, v in self.host_secs.items()})
+                   **self._counters())
         return out
+
+    def gen_mesh_img_color(self, data: dict, save_path: str, resolution=None,
+                           use_octree=None, cleanup: bool = False) -> dict:
+        """Image-coloured mesh.  ``cleanup=True`` keeps the largest
+        connected component and inpaints back-facing vertex colours from
+        the silhouette boundary."""
+        t0 = time.time()
+        self._require_octree(use_octree)
+        res = resolution or self.opt.resolution
+        self._begin()
+        with torch.inference_mode():
+            stage = self._device_stage_img(data, res, cleanup)
+            out = self._host_stage(stage, data, save_path, 2 if cleanup
+                                   else 1)
+        out.update(secs=time.time() - t0, grid_diag=self.last_grid_diag,
+                   **self._counters())
+        return out
+
+    def gen_mesh_many(self, items, save_paths, use_color: int = 0,
+                      resolution: int | None = None,
+                      pipeline: bool | None = None) -> list[dict]:
+        """Two-slot subject pipeline: subject i's host tail (waiting for
+        its colours to land, face formatting, component cleanup,
+        inpainting, mesh and montage write) runs on a worker thread while
+        subject i+1's device stage (encode, field evaluation, marching,
+        colour dispatch) proceeds on the main thread.
+
+        Every kernel launch stays on the main thread and on one stream, in
+        the order of the sequential loop; the worker only waits on CUDA
+        events and does host work.  So the meshes are those of one
+        ``gen_mesh`` / ``gen_mesh_img_color`` call per subject, whatever
+        the timing.  Returns result dicts in input order.
+
+        ``pipeline=None`` takes the worker when the host has more than one
+        core, else the sequential loop.  ``items`` may be any iterable (a
+        generator keeps two subjects in memory); ``save_paths`` a parallel
+        iterable of paths or a callable ``data -> path``.
+        """
+        res = resolution or self.opt.resolution
+        if callable(save_paths):
+            pairs = ((d, save_paths(d)) for d in items)
+        else:
+            pairs = zip(items, save_paths)
+        if pipeline is None:
+            try:
+                n_cores = len(os.sched_getaffinity(0))
+            except (AttributeError, OSError):
+                n_cores = os.cpu_count() or 1
+            pipeline = n_cores > 1
+        if not pipeline:
+            return [self.gen_mesh(d, p, res) if use_color == 0
+                    else self.gen_mesh_img_color(d, p, res,
+                                                 cleanup=use_color == 2)
+                    for d, p in pairs]
+        self._require_octree(None)
+
+        def host_stage(stage, data, save_path, t0, diag, counters):
+            sink: dict = {}
+            out = self._host_stage(stage, data, save_path, use_color, sink)
+            counters["host_secs"].update(
+                {k: round(v, 4) for k, v in sink.items()})
+            out.update(secs=time.time() - t0, grid_diag=diag, **counters)
+            return out
+
+        results = []
+        pending = None
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            for data, save_path in pairs:
+                t0 = time.time()
+                self._begin()
+                with torch.inference_mode():
+                    stage = (self._device_stage_normals(data, res)
+                             if use_color == 0 else
+                             self._device_stage_img(data, res,
+                                                    use_color == 2))
+                if pending is not None:
+                    results.append(pending.result())
+                pending = ex.submit(host_stage, stage, data, save_path, t0,
+                                    self.last_grid_diag, self._counters())
+            if pending is not None:
+                results.append(pending.result())
+        return results
+
+
+def estimate_back_colors(colors: np.ndarray, xyz: np.ndarray,
+                         k: int = 10, band: float = 1e-3) -> np.ndarray:
+    """Back-face colour inpainting.
+
+    Every vertex with projected z < 0 (back-facing) receives the average
+    colour of up to ``k`` nearest-in-y boundary vertices (0 <= z < band) on
+    its left (x' < x) and right (x' >= x) sides.  The boundary set is
+    y-sorted once and each chunk of back vertices queries only a y-window
+    of candidates, so peak temporaries are O(chunk * window).
+
+    A window is accepted per row and side only when it provably contains
+    the k nearest same-side candidates — at least k valid candidates and
+    the k-th nearest closer in y than both unclamped window edges; failing
+    rows escalate to a 4x window (up to the full boundary set), so the
+    result equals the dense computation.
+    """
+    colors = colors.copy()
+    back = np.nonzero(xyz[:, 2] < 0)[0]
+    boundary = np.nonzero((xyz[:, 2] >= 0) & (xyz[:, 2] < band))[0]
+    if len(back) == 0 or len(boundary) == 0:
+        return colors
+    order = np.argsort(xyz[boundary, 1], kind="stable")
+    boundary = boundary[order]
+    bx = np.ascontiguousarray(xyz[boundary, 0])
+    by = np.ascontiguousarray(xyz[boundary, 1])
+    bc = colors[boundary].astype(np.float64)
+    M = len(boundary)
+
+    def side_avg(px, py, window, rows=None):
+        """(sum, cnt, exact) of up-to-k nearest-in-y per side for one
+        window size.  px/py: [n]; returns arrays over the n rows."""
+        n = len(px)
+        W = min(window, M)
+        pos = np.searchsorted(by, py)
+        lo = np.clip(pos - W // 2, 0, M - W)                  # [n]
+        cols = lo[:, None] + np.arange(W)[None, :]            # [n, W]
+        wy = by[cols]
+        wx = bx[cols]
+        dy = np.abs(wy - py[:, None])                         # [n, W]
+        # y-distance this window is sure to cover: the nearer of the edges
+        # that are not clamped at the array boundary
+        edge_lo = np.where(lo > 0, dy[:, 0], np.inf)
+        edge_hi = np.where(lo + W < M, dy[:, -1], np.inf)
+        safe = np.minimum(edge_lo, edge_hi)                   # [n]
+        out_sum = np.zeros((n, 3))
+        out_cnt = np.zeros((n,), np.int64)
+        exact = np.zeros((n,), bool)
+        for left in (True, False):
+            m = (wx < px[:, None]) if left else (wx >= px[:, None])
+            d = np.where(m, dy, np.inf)
+            kk = min(k, W)
+            nearest = np.argpartition(d, kk - 1, axis=1)[:, :kk]
+            nd = np.take_along_axis(d, nearest, axis=1)       # [n, kk]
+            valid = nd < np.inf
+            cnt = valid.sum(axis=1)
+            kth = np.where(cnt > 0, nd.max(axis=1, initial=0.0,
+                                           where=valid), 0.0)
+            col = bc[np.take_along_axis(cols, nearest, axis=1)]
+            out_sum += (col * valid[..., None]).sum(axis=1)
+            out_cnt += cnt
+            ok = (W >= M) | ((cnt >= kk) & (kth <= safe))
+            exact = ok if left else (exact & ok)
+        if rows is None:
+            rows = np.arange(n)
+        return rows, out_sum, out_cnt, exact
+
+    chunk = 4096
+    for s in range(0, len(back), chunk):
+        ids = back[s:s + chunk]
+        px = np.ascontiguousarray(xyz[ids, 0])
+        py = np.ascontiguousarray(xyz[ids, 1])
+        rows, acc, cnt, exact = side_avg(px, py, window=8 * k)
+        W = 8 * k
+        while not exact.all() and W < M:
+            W *= 4
+            redo = np.nonzero(~exact)[0]
+            r2, s2, c2, e2 = side_avg(px[redo], py[redo], W, rows=redo)
+            acc[redo], cnt[redo], exact[redo] = s2, c2, e2 | (W >= M)
+        ok = cnt > 0
+        colors[ids[ok]] = (acc[ok] / cnt[ok, None]).astype(colors.dtype)
+    return colors

@@ -1,13 +1,16 @@
 """Configuration dataclasses (a copy of ``rgbd_pifuhd_tpu.utils.options``).
 
-Checkpoints embed ``Options.to_dict()``; ``from_dict`` restores them.  The
-argparse bridge of the JAX package is not part of this port slice.
+Checkpoints embed ``Options.to_dict()``; ``from_dict`` restores them;
+``parse_options`` is the command line of the entry points (the JAX package's
+flags plus ``--device``).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Sequence
 
 
 @dataclass
@@ -163,3 +166,192 @@ class Options:
         for k, v in keep.items():
             setattr(restored, k, v)
         return restored
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    """Argparse bridge with the JAX package's flag names, plus
+    ``--device`` (``cuda`` unless the caller asks for ``cpu``)."""
+    p = argparse.ArgumentParser(
+        description="rgbd_pifuhd_tpu_torch",
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter,
+    )
+    # Data
+    p.add_argument("--dataset", type=str, default="renderppl")
+    p.add_argument("--dataroot", type=str, default="./data")
+    p.add_argument("--loadSize", type=int, default=1024)
+    p.add_argument("--loadSizeBig", type=int, default=1024)
+    p.add_argument("--loadSizeLocal", type=int, default=512)
+    # Experiment
+    p.add_argument("--name", type=str, default="pifuhd")
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--mode", type=str, default="inout")
+    # Training
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--num_threads", type=int, default=4)
+    p.add_argument("--serial_batches", action="store_true")
+    p.add_argument("--learning_rate", type=float, default=1e-3)
+    p.add_argument("--num_iter", type=int, default=30)
+    p.add_argument("--num_epoch", type=int, default=1)
+    p.add_argument("--resume_epoch", type=int, default=-1)
+    p.add_argument("--continue_train", action="store_true")
+    p.add_argument("--train_full_pifu", action="store_true")
+    p.add_argument("--schedule", type=int, nargs="+", default=[10, 15])
+    p.add_argument("--gamma", type=float, default=0.1)
+    p.add_argument("--occ_loss_type", type=str, default="bce")
+    p.add_argument("--optimizer", type=str, default="rmsprop")
+    p.add_argument("--seed", type=int, default=0)
+    # Testing / recon
+    p.add_argument("--resolution", type=int, default=512)
+    p.add_argument("--start_id", type=int, default=-1)
+    p.add_argument("--end_id", type=int, default=-1)
+    p.add_argument("--use_color", type=int, default=0)
+    p.add_argument("--no_octree", action="store_true")
+    p.add_argument("--octree_levels", type=int, default=3, choices=(2, 3),
+                   help="3 = stride 8->4->1 refinement, 2 = single split")
+    p.add_argument("--num_refine_subcells", type=int, default=32768,
+                   help="level-3 refinement budget (4^3 sub-cells)")
+    p.add_argument("--num_refine_cells", type=int, default=12288,
+                   help="two-phase refinement budget (cells of 8^3 voxels)")
+    p.add_argument("--no_auto_escalate_budget", action="store_true",
+                   help="disable budget doubling on refinement overflow")
+    p.add_argument("--marching_algo", type=str, default="mc",
+                   choices=("mc", "mt"),
+                   help="isosurface extractor: watertight marching cubes "
+                        "(~3x fewer verts/tris) or marching tetrahedra")
+    p.add_argument("--no_streamed_recon", action="store_true",
+                   help="disable band-streamed reconstruction (one-shot "
+                        "field transfer, then slab-incremental marching)")
+    p.add_argument("--normal_mode", type=str, default="fd",
+                   choices=("fd", "grad", "mesh"),
+                   help="vertex normals: 4-tap finite difference (reference"
+                        " semantics), one autodiff sweep (exact field "
+                        "gradient), or geometric mesh normals (no device "
+                        "color pass — fastest)")
+    p.add_argument("--mesh_format", type=str, default="obj",
+                   choices=("obj", "ply"),
+                   help="mesh export: text OBJ (reference parity) or "
+                        "binary PLY (much faster host write)")
+    # Sampling
+    p.add_argument("--num_sample_inout", type=int, default=300)
+    p.add_argument("--sigma", type=float, default=1.0)
+    p.add_argument("--sigma_max", type=float, default=0.0)
+    p.add_argument("--sigma_min", type=float, default=0.0)
+    p.add_argument("--z_size", type=float, default=200.0)
+    # Model — global
+    p.add_argument("--norm", type=str, default="group")
+    p.add_argument("--num_stack_global", type=int, default=4)
+    p.add_argument("--hg_depth_global", type=int, default=2)
+    p.add_argument("--hg_dim_global", type=int, default=256)
+    p.add_argument("--mlp_dim_global", type=int, nargs="+",
+                   default=[257, 1024, 512, 256, 128, 1])
+    p.add_argument("--mlp_res_layers_global", type=int, nargs="+",
+                   default=[2, 3, 4])
+    # Model — local
+    p.add_argument("--num_stack_local", type=int, default=1)
+    p.add_argument("--hg_depth_local", type=int, default=2)
+    p.add_argument("--hg_dim_local", type=int, default=16)
+    p.add_argument("--mlp_dim_local", type=int, nargs="+",
+                   default=[272, 512, 256, 128, 1])
+    p.add_argument("--mlp_res_layers_local", type=int, nargs="+",
+                   default=[1, 2])
+    p.add_argument("--mlp_norm", type=str, default="group")
+    p.add_argument("--merge_layer", type=int, default=2)
+    p.add_argument("--num_local", type=int, default=1)
+    # Normal conditioning
+    p.add_argument("--use_front_normal", action="store_true", default=True)
+    p.add_argument("--use_back_normal", action="store_true", default=True)
+    p.add_argument("--no_front_normal", action="store_true")
+    p.add_argument("--no_back_normal", action="store_true")
+    p.add_argument("--no_depth", action="store_true")
+    # Paths
+    p.add_argument("--checkpoints_path", type=str, default="./checkpoints")
+    p.add_argument("--results_path", type=str, default="./result")
+    p.add_argument("--load_netG_checkpoint_path", type=str, default=None)
+    p.add_argument("--load_netMR_checkpoint_path", type=str, default=None)
+    # Parallelism / numerics (new)
+    p.add_argument("--mesh_shape", type=int, nargs="+", default=[-1])
+    p.add_argument("--dtype", type=str, default="bfloat16")
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   help="activation dtype for convs/MLP (bfloat16|float32)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize hourglass stacks (training memory)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the entry point; without a CUDA "
+                        "device the default raises instead of running on "
+                        "the CPU")
+    # Aug
+    p.add_argument("--use_aug", action="store_true",
+                   help="enable color-jitter augmentation (aug_* flags)")
+    p.add_argument("--aug_bri", type=float, default=0.2)
+    p.add_argument("--aug_con", type=float, default=0.2)
+    p.add_argument("--aug_sat", type=float, default=0.05)
+    p.add_argument("--aug_hue", type=float, default=0.05)
+    p.add_argument("--aug_blur", type=float, default=0.0)
+    return p
+
+
+def parse_options(argv: Sequence[str] | None = None,
+                  with_device: bool = False):
+    """Command line -> ``Options`` (and the ``--device`` string when
+    ``with_device``: the device is the process's, not the experiment's, so
+    it is no field of ``Options``)."""
+    args = build_arg_parser().parse_args(argv)
+    use_f = args.use_front_normal and not args.no_front_normal
+    use_b = args.use_back_normal and not args.no_back_normal
+    use_d = not args.no_depth
+
+    netG = PIFuLevelConfig(
+        num_stack=args.num_stack_global, hg_depth=args.hg_depth_global,
+        hg_dim=args.hg_dim_global, norm=args.norm, hg_down="ave_pool",
+        mlp_dim=tuple(args.mlp_dim_global),
+        mlp_res_layers=tuple(args.mlp_res_layers_global),
+        mlp_norm=args.mlp_norm, merge_layer=args.merge_layer,
+        use_depth=use_d, use_front_normal=use_f, use_back_normal=use_b,
+        load_size=args.loadSize, z_size=args.z_size,
+        compute_dtype=args.compute_dtype, remat=args.remat,
+    )
+    netMR = PIFuLevelConfig(
+        num_stack=args.num_stack_local, hg_depth=args.hg_depth_local,
+        hg_dim=args.hg_dim_local, norm=args.norm, hg_down="no_down",
+        mlp_dim=tuple(args.mlp_dim_local),
+        mlp_res_layers=tuple(args.mlp_res_layers_local),
+        mlp_norm=args.mlp_norm, merge_layer=-1,
+        use_depth=use_d, use_front_normal=use_f, use_back_normal=use_b,
+        load_size=args.loadSize, z_size=args.z_size,
+        compute_dtype=args.compute_dtype, remat=args.remat,
+    )
+    opt = Options(
+        dataset=args.dataset, dataroot=args.dataroot, load_size=args.loadSize,
+        load_size_big=args.loadSizeBig, load_size_local=args.loadSizeLocal,
+        name=args.name, debug=args.debug, mode=args.mode,
+        batch_size=args.batch_size, num_threads=args.num_threads,
+        serial_batches=args.serial_batches, learning_rate=args.learning_rate,
+        num_iter=args.num_iter, num_epoch=args.num_epoch,
+        resume_epoch=args.resume_epoch, continue_train=args.continue_train,
+        train_full_pifu=args.train_full_pifu, schedule=tuple(args.schedule),
+        gamma=args.gamma, occ_loss_type=args.occ_loss_type,
+        optimizer=args.optimizer, seed=args.seed,
+        resolution=args.resolution, start_id=args.start_id,
+        end_id=args.end_id, use_color=args.use_color,
+        use_octree=not args.no_octree,
+        num_refine_cells=args.num_refine_cells,
+        octree_levels=args.octree_levels,
+        num_refine_subcells=args.num_refine_subcells,
+        auto_escalate_budget=not args.no_auto_escalate_budget,
+        normal_mode=args.normal_mode,
+        marching_algo=args.marching_algo,
+        streamed_recon=not args.no_streamed_recon,
+        mesh_format=args.mesh_format,
+        num_sample_inout=args.num_sample_inout,
+        sigma=args.sigma_max if args.sigma_max > 0 else args.sigma,
+        sigma_max=args.sigma_max, sigma_min=args.sigma_min,
+        z_size=args.z_size, netG=netG, netMR=netMR, num_local=args.num_local,
+        checkpoints_path=args.checkpoints_path, results_path=args.results_path,
+        load_netG_checkpoint_path=args.load_netG_checkpoint_path,
+        load_netMR_checkpoint_path=args.load_netMR_checkpoint_path,
+        mesh_shape=tuple(args.mesh_shape), dtype=args.dtype,
+        use_aug=args.use_aug,
+        aug_bri=args.aug_bri, aug_con=args.aug_con, aug_sat=args.aug_sat,
+        aug_hue=args.aug_hue, aug_blur=args.aug_blur,
+    )
+    return (opt, args.device) if with_device else opt

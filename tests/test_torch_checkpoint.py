@@ -76,11 +76,22 @@ def test_options_round_trip(rel):
 
 
 def test_bench_tiny_loads_strictly():
-    """Every tensor of a committed checkpoint finds its module."""
+    """Every tensor of a committed checkpoint finds its module; the
+    f16-stored weights arrive as f32 holding the f16 values (what the JAX
+    demo's cast gives), and the model is the norm-free two-level one."""
     state = tck.load_checkpoint(os.path.join(REPO, CKPTS[0]), device="cpu")
     opt = Options.from_dict(state["opt"])
     model = MultiResPIFu(opt.netMR, opt.netG, device="cpu")
     tck.load_params(model, state["params"])
+    raw = serialization.msgpack_restore(open(os.path.join(
+        REPO, CKPTS[0]), "rb").read())["params"]["params"]
+    k = raw["mlp"]["dense0"]["kernel"]
+    assert k.dtype == np.float16
+    w = model.mlp.dense0.weight
+    assert w.dtype == torch.float32
+    assert np.array_equal(w.detach().numpy(), k.astype(np.float32).T)
+    assert model.mlp.norm == model.netG.mlp.norm == "none"
+    assert model.mlp.filter_channels == [48, 64, 32, 1]
     n = sum(p.numel() for p in model.parameters())
     ref = sum(np.asarray(x).size for x in jax.tree.leaves(
         serialization.msgpack_restore(open(os.path.join(

@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX, flax, msgpack nor
-cv2, nor any module of the JAX package, and its entry points never carry
-on quietly on the CPU.
+"""The PyTorch port stands alone: it imports neither JAX, flax, msgpack,
+cv2 nor PIL, nor any module of the JAX package, and its entry points never
+carry on quietly on the CPU.
 
 Later port slices extend this file with their modules and entry points.
 """
@@ -16,8 +16,10 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "rgbd_pifuhd_tpu_torch")
-BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "cv2",
+BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "cv2", "PIL",
           "rgbd_pifuhd_tpu")
+SERVING_MODULES = ("cli.common", "cli.run_recon", "cli.serve", "data.readdata",
+           "data.preprocessing", "utils.png", "ops.fused_mlp")
 
 
 def _banned(name: str) -> bool:
@@ -61,10 +63,13 @@ def test_import_every_module_without_jax():
             importlib.import_module(n)
         bad = [m for m in sys.modules
                if (m == "rgbd_pifuhd_tpu" or m.startswith("rgbd_pifuhd_tpu.")
-                   or m.split(".")[0] in ("jax", "flax", "msgpack", "cv2"))
+                   or m.split(".")[0] in ("jax", "flax", "msgpack", "cv2",
+                                          "PIL"))
                and sys.modules[m] is not None]
         assert not bad, bad
-        assert len(names) >= 16, names
+        assert len(names) >= 24, names
+        for n in {SERVING_MODULES!r}:
+            assert pkg.__name__ + "." + n in names, n
         print(len(names))
     """)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -121,3 +126,46 @@ def test_kernel_wrapper_has_no_cpu_fallback_for_cuda_tensors():
               and n.name == "fused_gather_mlp")
     assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
     assert fq.fused_gather_mlp.launches == 0
+
+
+@pytest.mark.parametrize("module,name", [("fused_mlp", "fused_point_mlp"),
+                                         ("fused_query", "gather_concat")])
+def test_serving_path_wrappers_have_no_cpu_fallback(module, name):
+    """The whole-chain kernel's wrapper and the gather entry: no ``try``,
+    the plain version only behind the ``device.type == "cpu"`` test, and
+    the wrapper never calls the other kernel's wrapper."""
+    import importlib
+
+    mod = importlib.import_module(f"rgbd_pifuhd_tpu_torch.ops.{module}")
+    tree = ast.parse(open(mod.__file__).read())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+              and n.name == name)
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+    called = {n.func.id for n in ast.walk(fn)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)}
+    assert "fused_gather_mlp" not in called
+    assert "fused_gather_mlp_ref" not in called
+    tests = [ast.unparse(n.test) for n in ast.walk(fn)
+             if isinstance(n, ast.If)]
+    assert any("device.type == 'cpu'" in t for t in tests), tests
+    assert getattr(mod, name).launches == 0
+
+
+def test_cli_entry_points_refuse_silent_cpu(tmp_path):
+    """``cli.serve`` and ``cli.run_recon`` default to ``cuda`` and raise
+    without a card; ``--device cpu`` is the only way onto the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    from rgbd_pifuhd_tpu_torch.cli import run_recon, serve
+
+    ckpt = os.path.join(REPO, "assets", "bench_tiny", "ckpt")
+    args = ["--load_netMR_checkpoint_path", ckpt, "--results_path",
+            str(tmp_path), "--dataroot", str(tmp_path)]
+    for main in (serve.main, run_recon.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(list(args))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(args + ["--device", "cuda"])
+    run_recon.main(args + ["--device", "cpu"])      # empty directory: no-op
+    with pytest.raises(SystemExit, match="checkpoint not found"):
+        serve.main(["--checkpoints_path", str(tmp_path), "--device", "cpu"])

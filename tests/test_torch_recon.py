@@ -121,6 +121,22 @@ def test_colors_match_jax(meshes):
     assert off.mean() < 1e-3, (int(off.sum()), float(np.abs(ct - cj).max()))
 
 
+def test_montage_matches_jax(meshes):
+    """The PNG beside the mesh — the global image's RGB and, with the
+    normal nets on, both predicted normal maps — against the file the JAX
+    package wrote through OpenCV: the same strip within one grey level
+    (each side quantises its own f32 normal maps)."""
+    from rgbd_pifuhd_tpu_torch.utils.png import read_png
+
+    tmp, out = meshes
+    mine = read_png(os.path.join(tmp, "port.png"))
+    ref = read_png(os.path.join(tmp, "jax.png"))
+    assert mine.shape == ref.shape and mine.shape[0] == 64
+    assert mine.shape[1] in (64, 192) and mine.dtype == np.uint8
+    assert np.abs(mine.astype(int) - ref.astype(int)).max() <= 1
+    assert np.array_equal(mine, read_png(os.path.join(tmp, "oneshot.png")))
+
+
 def test_streamed_matches_one_shot(meshes):
     tmp, out = meshes
     assert len(out["port"]["verts"]) == len(out["oneshot"]["verts"])
