@@ -22,7 +22,9 @@ line each; any failure exits non-zero:
    launch counts each process reports are checked against its field
    queries, the mesh files against the replies;
 6. times (CUDA events) of both kernels and their plain versions at the
-   full-width shapes, beside the card's bound for the same work.
+   full-width shapes, beside the card's bound for the same work, and of
+   every launch of the coarse and the fine chain alone (``[time_layers]``)
+   beside its bounds and one ``torch.matmul`` of the same product.
 
 ``fused_point_mlp`` is held against its plain version in phase 3 as well
 (f32 and bf16, both full-width norm-free chains and ``bench_tiny``'s).
@@ -128,8 +130,10 @@ def main() -> None:
         fail(f"build failed: {errs[0][0]}: {errs[0][1]}")
     ptxas = [ln.strip() for k in ("nvcc", "nvcc_mlp")
              for ln in (logs.get(k) or "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    phase("build", f"fused_query.cu + fused_mlp.cu + marching.cc + "
+             if any(w in ln for w in ("registers", "spill", "arning",
+                                      "Compiling entry"))]
+    phase("build", f"fused_query.cu (+ hopper.cuh) + fused_mlp.cu + "
+          f"marching.cc + "
           f"meshio.cc built in {time.time() - t0:.1f} s; ptxas: "
           f"{' || '.join(ptxas)}")
 
@@ -166,6 +170,7 @@ def main() -> None:
 
     # ---- 5. times
     timing = time_kernel(torch, fq, model, dev)
+    time_layers(torch, fq, model, dev)
     mtiming = time_mlp_kernel(torch, fq, fm, PointMLP, dev)
     kern = {"name": "fused_gather_mlp", "route": "cuda",
             "source": "rgbd_pifuhd_tpu_torch/csrc/fused_query.cu",
@@ -269,6 +274,17 @@ def kernel_checks(torch, fq, model, PointMLP, dev) -> dict:
                                             **kw),
                  fq.fused_gather_mlp_ref(f, uv, extra, narrow.packed(), **kw),
                  cd, f"narrow 40-72-40-1 no norm {cd}")
+        # a last layer wider than one column, phi from the last layer
+        wide = PointMLP((37 + 3, 64, 3), 1, (1,), "group",
+                        dtype=None if cd == torch.float32 else cd,
+                        device=dev)
+        for kw in (dict(res_layers=(1,), merge_layer=1, last_op=None),
+                   dict(res_layers=(1,), merge_layer=0)):
+            _compare(torch, fq.fused_gather_mlp(f, uv, extra, wide.packed(),
+                                                **kw),
+                     fq.fused_gather_mlp_ref(f, uv, extra, wide.packed(),
+                                             **kw),
+                     cd, f"40-64-3 GroupNorm merge {kw['merge_layer']} {cd}")
     if _BAD:
         fail(f"kernel disagrees with its plain version: {_BAD}")
     tol = TOL_BF16_PRED
@@ -739,6 +755,60 @@ def time_kernel(torch, fq, model, dev) -> dict:
         "bound_bytes_ms": round(bound_bytes, 4), **res,
         "library": "none: no single PyTorch call computes this function"}))
     return res
+
+
+def time_layers(torch, fq, model, dev) -> None:
+    """Every launch of the coarse and the fine chain alone, at N = 262144,
+    bf16 (CUDA events around ``Chain.run_one`` after one whole run has
+    filled the buffers): milliseconds beside the operations bound, the bytes
+    bound (each activation read once and written once) and, as
+    ``library_ms``, one ``torch.matmul`` of the same [N, K] x [K, M] bf16
+    product (timed here only: the port never calls it)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    N = 262144
+    out = {}
+    for name, m, merge in (("coarse", model.netG.mlp, model.netG.mlp.merge),
+                           ("fine", model.mlp, -1)):
+        feat, uv, extra = _level_inputs(torch, name, N, dev, gen)
+        feat = feat.to(torch.bfloat16).contiguous()
+        packed = m.packed()
+        c = fq.Chain(feat, uv, extra, packed, merge, 32, "sigmoid", None)
+        c.run()
+        torch.cuda.synchronize()
+        g_bytes = uv.numel() * 4 + extra.numel() * 4 + N * c.plan.k0p * 2
+        rows = [{"launch": "gather", "ms": round(_event_ms(
+            torch, lambda: c.run_one(0), 20), 4), "bound_ops_ms": 0.0,
+            "bound_bytes_ms": round(g_bytes / HBM_BPS * 1e3, 4),
+            "library_ms": None}]
+        for i, (lp, L) in enumerate(zip(c.plan.layers, packed.layers)):
+            d = lp.ints
+            K, M = int(L.weight.shape[1]), d["M"]
+            byts = N * (d["lda1"] + d.get("lda2", 0)) * 2 + L.weight.numel() \
+                * 2 + N * (M * 4 if d["last"] else d["ldo"] * 2) \
+                + (N * d["K1"] * 4 if lp.phi == "phi_out" else 0)
+            a = torch.randn((N, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            wt = L.weight.t().contiguous()
+            rows.append({
+                "launch": f"L{i} {K}->{M}" + (" +phi" if lp.phi else ""),
+                "kind": ("f32", "wgmma", "head")[d["kind"]],
+                "ms": round(_event_ms(torch, lambda: c.run_one(i + 1), 20),
+                            4),
+                "bound_ops_ms": round(2 * N * K * M / PEAK_BF16 * 1e3, 4),
+                "bound_bytes_ms": round(byts / HBM_BPS * 1e3, 4),
+                "library_ms": round(_event_ms(
+                    torch, lambda: torch.matmul(a, wt), 20), 4)})
+            del a
+        whole = _event_ms(torch, c.run, 20)
+        out[name] = {"launches": rows,
+                     "sum_ms": round(sum(r["ms"] for r in rows), 4),
+                     "floor_ms": round(sum(max(r["bound_ops_ms"],
+                                               r["bound_bytes_ms"])
+                                           for r in rows), 4),
+                     "chain_ms": round(whole, 4)}
+    phase("time_layers", json.dumps({
+        "work": "each launch of one chain alone, N=262144, bf16", **out}))
 
 
 def _norm_free_mlp(torch, PointMLP, chans, res, cd, dev, seed):

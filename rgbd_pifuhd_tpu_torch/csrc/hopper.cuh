@@ -1,0 +1,273 @@
+// Device helpers for Hopper (sm_90a) shared by the port's kernels: the
+// 128-byte swizzle, TMA box loads reported to a shared-memory barrier
+// (mbarrier), named barriers, register rebalancing between warpgroups,
+// ldmatrix, and the warpgroup matrix multiply (wgmma) with A in registers
+// and B read from shared memory through a descriptor.
+//
+// Conventions.  An operand tile in shared memory is K-major: one row per
+// output row (A) or output column (B), 64 bf16 = 128 bytes of K per row, so
+// a row is one swizzle line.  The tile's base is aligned to 1024 bytes (8
+// rows: the swizzle pattern's period), and the 16-byte chunk c of row r
+// lives at r * 128 + ((c ^ (r & 7)) << 4).  That is where a TMA load with
+// CU_TENSOR_MAP_SWIZZLE_128B puts it and what wgmma's "128B swizzle"
+// descriptor mode expects.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hopper {
+
+constexpr int TILE_K = 64;               // bf16 per 128-byte swizzle line
+constexpr int LINE_BYTES = 128;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c (0..7) of row r in a swizzled tile.
+__device__ __forceinline__ uint32_t swz128(int r, int c) {
+  return (uint32_t)(r * LINE_BYTES + ((c ^ (r & 7)) << 4));
+}
+
+// ---------------------------------------------------------------- ldmatrix
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8.  With matrices ordered (rows 0-7, k 0-7), (rows 8-15, k 0-7),
+// (rows 0-7, k 8-15), (rows 8-15, k 8-15) the result is the A fragment of
+// one warp for m16k16, which is also a warp's share of wgmma's m64k16 A.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t& r0, uint32_t& r1,
+                                            uint32_t& r2, uint32_t& r3,
+                                            uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr)
+      : "memory");
+}
+
+// ------------------------------------------------------------------- wgmma
+// Descriptor of a K-major, 128-byte-swizzled operand tile at shared address
+// saddr (1024-byte aligned, plus 32 bytes per 16-wide K step inside the
+// line): start address, leading offset (unused in this mode), 1024 bytes
+// between 8-row groups, swizzle mode 1 (128 bytes).
+__device__ __forceinline__ uint64_t desc_k128(uint32_t saddr) {
+  uint64_t d = (uint64_t)((saddr & 0x3FFFFu) >> 4);
+  d |= (uint64_t)1 << 16;
+  d |= (uint64_t)(1024 >> 4) << 32;
+  d |= (uint64_t)1 << 62;
+  return d;
+}
+
+// Orders earlier register and shared-memory writes before the next wgmma.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait until at most N committed wgmma groups of this warpgroup are in
+// flight.
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins register values at this point of the program: the compiler may
+// otherwise move the arithmetic that defines a wgmma operand (or reads an
+// accumulator) across the fence / commit / wait statements, which are
+// opaque to it, and ptxas then serialises the products.
+template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N> __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[64] += A(64 x 16, registers) * B(16 x 128, shared memory), bf16 inputs,
+// f32 accumulation, executed by all four warps of a warpgroup.  Thread
+// (warp w, lane l; g = l / 4, t = l % 4) holds d[4 j + 2 h + e] = element
+// (row 16 w + g + 8 h, column 8 j + 2 t + e).
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// d[128] += A(64 x 16, registers) * B(16 x 256, shared memory): as above
+// with 32 column blocks of 8.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127 "
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+}
+
+// Registers moved between warpgroups: all four warps of a warpgroup give
+// registers up (dec) or take them (inc); N is a multiple of 8.
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------------- barriers in shared memory
+// A barrier among `count` threads of the block (a multiple of 32), by id
+// (1..15; 0 is __syncthreads).
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(arrivals)
+               : "memory");
+}
+
+// After the inits, before any thread uses the barriers.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// The barrier's current phase also waits for `bytes` more bytes of TMA
+// copies; counts as one arrival.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// One thread asks the Tensor Memory Accelerator for a 2-D box of the tensor
+// that `tmap` (a CUtensorMap in kernel parameter space) describes, at
+// element coordinates (c0 innermost, c1 row); the box lands at shared
+// address dst in the map's swizzle, parts outside the tensor as zeros, and
+// its bytes are reported to the barrier.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// Wait for the phase of the given parity to complete.  A wait of more than
+// a few seconds is a lost arrival: trap, so that a fault ends the kernel
+// with an error and not the card with a hang.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 33)) __trap();
+  }
+}
+
+// ----------------------------------------------------------- bf16 in pairs
+__device__ __forceinline__ float bf16_lo(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t x) {
+  return __uint_as_float(x & 0xFFFF0000u);
+}
+// (lo, hi) rounded to nearest even and packed, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+}  // namespace hopper

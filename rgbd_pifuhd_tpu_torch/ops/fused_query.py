@@ -18,16 +18,24 @@ tiles (``pallas_query.gn_scoped_apply``).
 the plain PyTorch version ``fused_gather_mlp_ref``; a CUDA tensor launches
 ``csrc/fused_query.cu`` (built with nvcc at first use) or raises.  There is
 no fallback from the kernel to the plain version.
+
+A CUDA call is planned once per shape (``plan_chain``: the launches and one
+workspace that holds every intermediate), bound to addresses (``Chain``)
+and enqueued by one host call, ``fq_chain``: the gather, then per Dense
+layer one launch (f32: FMA tiles; bf16: wgmma tiles fed by TMA, or the
+per-row head for a last layer one column wide) and the reduce of its
+GroupNorm statistics.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Sequence
 
 import torch
@@ -39,28 +47,46 @@ _SO = os.path.join(_BUILD, "libfused_query.so")
 _LOCKS: dict = {}
 _LIB: list = []
 
-BM = 64             # point rows per block tile of the layer kernel
+# by compute dtype: point rows per row block of the layer kernel's statistics
+# partials, and per block tile (what gn_scope must be a multiple of)
+BM = {torch.float32: 64, torch.bfloat16: 64}
+TILE_ROWS = {torch.float32: 64, torch.bfloat16: 128}
+BK = 64             # K values per ring stage of the bf16 layer kernel
+STATS_SPLIT = 8     # partial (sum, sum of squares) pairs per (segment, group)
 MAXK_NORM = 1024    # widest normalised layer the kernel's prologue holds
 EPS = 1e-5
 SLOPE = 0.01
 SLOPE_BF16 = 0.010009765625     # 0.01 rounded to bf16
+# LayerParams.kind: which kernel a layer launches
+KIND_F32, KIND_WGMMA, KIND_HEAD = 0, 1, 2
 
 
 # ------------------------------------------------------------- packing
+def _rup(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
 def _r8(n: int) -> int:
-    return -(-n // 8) * 8
+    return _rup(n, 8)
 
 
 @dataclass
 class PackedLayer:
     weight: torch.Tensor            # [M, K1 + K2] compute dtype (plain)
-    weight_p: torch.Tensor          # [M, K1p + K2p] zero-padded (kernel)
+    # [M, k1p + k2p], K ranges zero-padded to 8: read by the f32 layer
+    # kernel of csrc/fused_query.cu and by csrc/fused_mlp.cu
+    weight_p: torch.Tensor
+    # [M, k1k + k2k], K ranges zero-padded to BK: read by the bf16 layer
+    # and head kernels of csrc/fused_query.cu; None for f32
+    weight_k: torch.Tensor | None
     bias: torch.Tensor              # [M] f32, rounded to the compute dtype
     gn_scale: torch.Tensor | None   # [M] f32
     gn_bias: torch.Tensor | None    # [M] f32
     k1: int                         # real width of the first K range
     k1p: int                        # k1 padded to a multiple of 8
     k2p: int                        # padded residual (x0) range, or 0
+    k1k: int                        # k1 padded to a multiple of BK
+    k2k: int                        # residual range padded to BK, or 0
 
 
 @dataclass
@@ -69,21 +95,33 @@ class PackedMLP:
     in_dim: int
     res_layers: frozenset
     compute_dtype: torch.dtype
+    plans: dict = field(default_factory=dict)   # plan_chain's cache
 
     @property
     def widths(self) -> list:
         return [int(L.weight.shape[0]) for L in self.layers]
 
 
+def _pad_ranges(wc: torch.Tensor, k1: int, k2: int, to: int) -> torch.Tensor:
+    """``[M, k1 + k2]`` -> ``[M, rup(k1) + rup(k2)]``, each K range
+    zero-padded to a multiple of ``to``."""
+    wp = torch.zeros((int(wc.shape[0]), _rup(k1, to) + _rup(k2, to)),
+                     dtype=wc.dtype, device=wc.device)
+    wp[:, :k1] = wc[:, :k1]
+    wp[:, _rup(k1, to):_rup(k1, to) + k2] = wc[:, k1:]
+    return wp
+
+
 def pack_layers(linears: Sequence, norms: Sequence,
                 compute_dtype: torch.dtype,
                 res_layers: Sequence[int] = ()) -> PackedMLP:
     """Pack ``(weight [out, in], bias [out])`` per layer and ``(scale,
-    bias)`` or None per layer, once, for the kernel and its plain version.
-    Weights keep the ``nn.Linear`` layout (each output column's weights
-    contiguous in K: the B operand layout the kernel loads); the kernel's
-    copy pads each K range (h_prev, then x0 for a residual layer) to a
-    multiple of 8 with zeros, so operands move in 16-byte chunks."""
+    bias)`` or None per layer, once, for the kernels and their plain
+    versions.  Weights keep the ``nn.Linear`` layout (each output column's
+    weights contiguous in K: the B operand layout the kernels load); the
+    kernels' copies pad each K range (h_prev, then x0 for a residual layer)
+    with zeros: to a multiple of 8, so operands move in 16-byte chunks, and
+    for bf16 also to a multiple of ``BK``, a whole ring stage."""
     res = frozenset(int(r) for r in res_layers)
     c0 = int(linears[0][0].shape[1]) // (2 if 0 in res else 1)
     layers = []
@@ -94,17 +132,16 @@ def pack_layers(linears: Sequence, norms: Sequence,
             raise ValueError(f"layer {i}: {w.shape[1]} inputs, expected "
                              f"{k1} + {k2}")
         wc = w.detach().to(compute_dtype)
-        wp = torch.zeros((int(w.shape[0]), _r8(k1) + _r8(k2)),
-                         dtype=compute_dtype, device=w.device)
-        wp[:, :k1] = wc[:, :k1]
-        wp[:, _r8(k1):_r8(k1) + k2] = wc[:, k1:]
         layers.append(PackedLayer(
-            weight=wc.contiguous(), weight_p=wp,
+            weight=wc.contiguous(), weight_p=_pad_ranges(wc, k1, k2, 8),
+            weight_k=_pad_ranges(wc, k1, k2, BK)
+            if compute_dtype == torch.bfloat16 else None,
             bias=b.detach().to(compute_dtype).float().contiguous(),
             gn_scale=None if nrm is None else nrm[0].detach().float()
             .contiguous(),
             gn_bias=None if nrm is None else nrm[1].detach().float()
-            .contiguous(), k1=k1, k1p=_r8(k1), k2p=_r8(k2)))
+            .contiguous(), k1=k1, k1p=_r8(k1), k2p=_r8(k2),
+            k1k=_rup(k1, BK), k2k=_rup(k2, BK)))
     return PackedMLP(layers, c0, res, compute_dtype)
 
 
@@ -216,14 +253,24 @@ def fused_gather_mlp_ref(feat, uv, extra, layers: PackedMLP, *,
 
 
 # -------------------------------------------------------- CUDA binding
+# Mirrors of the structs of csrc/fused_query.cu, field for field.
+_GATHER_PTRS = ("feat", "uv", "extra", "x0")
+_GATHER_INTS = ("H", "W", "C", "E", "ldx", "N")
+_LAYER_PTRS = ("a1", "a2", "w", "bias", "stats_in", "gs_in", "gb_in", "out",
+               "raw_out", "phi_out", "part_out", "stats_out")
+_LAYER_INTS = ("kind", "N", "K1", "K1p", "K2p", "M", "ldo", "lda1", "lda2",
+               "norm_in", "cg_in", "g_in", "cg_out", "g_out", "seg_rows",
+               "n_seg", "last", "sigmoid")
+
+
+class _GatherParams(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_void_p) for n in _GATHER_PTRS] + [
+        (n, ctypes.c_int) for n in _GATHER_INTS]
+
+
 class _LayerParams(ctypes.Structure):
-    _fields_ = [(n, ctypes.c_void_p) for n in (
-        "a1", "a2", "w", "bias", "stats_in", "gs_in", "gb_in", "out",
-        "raw_out", "part_out", "stats_out")] + [(n, ctypes.c_int) for n in (
-            "N", "K1", "K1p", "K2p", "M", "ldo", "lda1", "lda2", "norm_in",
-            "cg_in",
-            "g_in", "cg_out", "g_out", "seg_rows", "n_seg", "last",
-            "sigmoid")]
+    _fields_ = [(n, ctypes.c_void_p) for n in _LAYER_PTRS] + [
+        (n, ctypes.c_int) for n in _LAYER_INTS]
 
 
 def _nvcc() -> str:
@@ -237,13 +284,15 @@ def _nvcc() -> str:
 
 def build_cuda(src: str, so: str) -> str:
     """Compile one CUDA source into ``_build/`` (nvcc, sm_90a) unless the
-    library is newer than the source.  Returns the compiler's output
-    (``-Xptxas -v``: registers, spills); raises if the build fails."""
+    library is newer than the source and every header (``*.cuh``) beside
+    it.  Returns the compiler's output (``-Xptxas -v``: registers, spills);
+    raises if the build fails."""
     with _LOCKS.setdefault(so, threading.Lock()):
-        if (os.path.exists(so)
-                and os.path.getmtime(so) >= os.path.getmtime(src)):
+        deps = [src] + glob.glob(os.path.join(os.path.dirname(src), "*.cuh"))
+        if (os.path.exists(so) and os.path.getmtime(so)
+                >= max(os.path.getmtime(d) for d in deps)):
             return ""
-        os.makedirs(_BUILD, exist_ok=True)
+        os.makedirs(os.path.dirname(so), exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -267,14 +316,24 @@ def _lib():
     build()
     lib = ctypes.CDLL(_SO)
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    gp, lp = ctypes.POINTER(_GatherParams), ctypes.POINTER(_LayerParams)
+    lib.fq_abi.restype = ci
+    lib.fq_abi.argtypes = [ci]
     lib.fq_gather.restype = ci
-    lib.fq_gather.argtypes = [ci, vp, ci, ci, ci, vp, vp, ci, vp, ci, ci,
-                              vp]
-    lib.fq_layer.restype = ci
-    lib.fq_layer.argtypes = [ci, ctypes.POINTER(_LayerParams), vp]
-    lib.fq_act.restype = ci
-    lib.fq_act.argtypes = [ci, vp, ci, ci, ci, ci, vp, vp, vp, ci, ci, ci,
-                           vp, vp]
+    lib.fq_gather.argtypes = [ci, gp, vp]
+    lib.fq_launch.restype = ci
+    lib.fq_launch.argtypes = [ci, gp, lp, ci, ci, vp]
+    lib.fq_chain.restype = ci
+    lib.fq_chain.argtypes = [ci, gp, lp, ci, vp, ctypes.POINTER(ci)]
+    got = [lib.fq_abi(i) for i in range(7)]
+    want = [ctypes.sizeof(_GatherParams), ctypes.sizeof(_LayerParams),
+            BM[torch.float32], BM[torch.bfloat16], BK,
+            TILE_ROWS[torch.bfloat16], STATS_SPLIT]
+    if got != want:
+        raise RuntimeError(f"fused_query: the library says {got} for struct "
+                           f"sizes, row blocks, K padding and tile rows; "
+                           f"this module "
+                           f"{want}")
     _LIB.append(lib)
     return lib
 
@@ -289,82 +348,184 @@ def _ptr(t: torch.Tensor | None):
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ALIGN = 256        # bytes between the workspace's buffers
+
+
+@dataclass
+class LayerPlan:
+    """One layer launch of a chain: the int fields of ``LayerParams`` and,
+    by name, the workspace buffers its pointers take."""
+    ints: dict
+    a1: str                     # "x0" or "h<i-1>"
+    a2: str | None              # "x0" for a residual layer
+    out: str                    # "h<i>", or "pred" (the last layer)
+    stats_in: str | None        # "stats<i-1>" after a GroupNorm layer
+    part_out: str | None        # "part<i>" / "stats<i>" of a GroupNorm layer
+    stats_out: str | None
+    phi: str | None             # which field writes phi: "phi_out" (this
+    #                             layer's activated input) or "raw_out"
+
+
+@dataclass
+class ChainPlan:
+    """Everything about one chain call that does not depend on addresses:
+    the workspace layout and each launch's arguments."""
+    dtype: torch.dtype
+    k0p: int                    # x0's row length (C + E padded to 8)
+    nbytes: int                 # workspace size
+    buffers: dict               # name -> (byte offset, byte size)
+    layers: list                # LayerPlan per Dense
+    phi_cols: int | None        # width of phi, None without a merge layer
+    pred_cols: int
+
+
+def plan_chain(mlp: PackedMLP, N: int, C: int, E: int, merge: int,
+               num_groups: int, last_op: str | None,
+               gn_scope: int | None) -> ChainPlan:
+    """The launches of one ``fused_gather_mlp`` call over ``N`` points:
+    gather into ``x0``, then per Dense one layer launch (f32: FMA tiles;
+    bf16: wgmma tiles, or the per-row head for a last layer one column
+    wide) that reads ``h<i-1>`` (and ``x0`` for a residual layer) and writes
+    ``h<i>`` with its column partials ``part<i>`` reduced into
+    ``stats<i>``.  phi comes from the layer after the merge layer, which
+    writes its activated input, or from ``raw_out`` when the merge layer is
+    the last.  All buffers lie in one workspace, ``_ALIGN`` bytes apart at
+    least.  Cached on ``mlp``."""
+    key = (N, C, E, merge, num_groups, last_op, gn_scope)
+    if key in mlp.plans:
+        return mlp.plans[key]
+    cd = mlp.compute_dtype
+    bf = cd == torch.bfloat16
+    es = 2 if bf else 4
+    n_layers = len(mlp.layers)
+    seg_rows = N if gn_scope is None else int(gn_scope)
+    n_seg = _segments(N, gn_scope)
+    n_rb = -(-N // BM[cd])
+    k0p = _r8(C + E)
+    buffers: dict = {}
+    nbytes = 0
+
+    def alloc(name: str, size: int) -> str:
+        nonlocal nbytes
+        buffers[name] = (nbytes, size)
+        nbytes += _rup(size, _ALIGN)
+        return name
+
+    alloc("x0", N * k0p * es)
+    layers = []
+    phi_cols = None
+    for i, L in enumerate(mlp.layers):
+        M = int(L.weight.shape[0])
+        last = i == n_layers - 1
+        kind = KIND_F32 if not bf else (
+            KIND_HEAD if last and M == 1 else KIND_WGMMA)
+        k1p, k2p = (L.k1p, L.k2p) if kind == KIND_F32 else (L.k1k, L.k2k)
+        ints = dict(kind=kind, N=N, K1=L.k1, K1p=k1p, K2p=k2p, M=M,
+                    seg_rows=seg_rows, n_seg=n_seg, last=int(last),
+                    sigmoid=int(last and last_op == "sigmoid"))
+        lp = LayerPlan(ints, "x0", "x0" if L.k2p else None, "pred", None,
+                       None, None, None)
+        if i == 0:
+            ints.update(lda1=k0p, norm_in=0)
+        else:
+            prev = mlp.layers[i - 1]
+            lp.a1 = f"h{i - 1}"
+            ints.update(lda1=_r8(L.k1), norm_in=1)
+            if prev.gn_scale is not None:
+                lp.stats_in = f"stats{i - 1}"
+                ints.update(norm_in=2, cg_in=L.k1 // num_groups,
+                            g_in=num_groups)
+            if merge == i - 1:
+                lp.phi, phi_cols = "phi_out", L.k1
+        if lp.a2:
+            ints.update(lda2=k0p)
+        if last:
+            ints.update(ldo=M)
+            if merge == i:
+                lp.phi, phi_cols = "raw_out", M
+        else:
+            lp.out = alloc(f"h{i}", N * _r8(M) * es)
+            ints.update(ldo=_r8(M))
+            if L.gn_scale is not None:
+                lp.part_out = alloc(f"part{i}", n_rb * M * 2 * 4)
+                lp.stats_out = alloc(
+                    f"stats{i}", n_seg * num_groups * STATS_SPLIT * 2 * 4)
+                ints.update(cg_out=M // num_groups, g_out=num_groups)
+        layers.append(lp)
+    plan = ChainPlan(cd, k0p, nbytes, buffers, layers, phi_cols,
+                     mlp.widths[-1])
+    mlp.plans[key] = plan
+    return plan
+
+
+class Chain:
+    """One bound chain call: the workspace, the outputs and the argument
+    structs.  ``run`` enqueues every launch from one host call; ``run_one``
+    enqueues one of them (0 the gather, i + 1 layer i) so that it can be
+    timed alone after a ``run`` has filled its inputs."""
+
+    def __init__(self, feat, uv, extra, mlp: PackedMLP, merge, num_groups,
+                 last_op, gn_scope):
+        self.lib = _lib()
+        dev = feat.device
+        H, W, C = feat.shape
+        N, E = extra.shape
+        self.plan = plan = plan_chain(mlp, N, C, E, merge, num_groups,
+                                      last_op, gn_scope)
+        self.code = _DTYPE_CODE[plan.dtype]
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+        self.ws = torch.empty(plan.nbytes, dtype=torch.uint8, device=dev)
+        self.pred = torch.empty((N, plan.pred_cols), dtype=torch.float32,
+                                device=dev)
+        self.phi = None if plan.phi_cols is None else torch.empty(
+            (N, plan.phi_cols), dtype=torch.float32, device=dev)
+        base = self.ws.data_ptr()
+        at = {k: base + off for k, (off, _) in plan.buffers.items()}
+        at["pred"] = self.pred.data_ptr()
+        at[None] = None
+        self.gather = g = _GatherParams()
+        g.feat, g.uv, g.extra, g.x0 = (feat.data_ptr(), uv.data_ptr(),
+                                       extra.data_ptr(), at["x0"])
+        g.H, g.W, g.C, g.E, g.ldx, g.N = H, W, C, E, plan.k0p, N
+        self.layers = arr = (_LayerParams * len(plan.layers))()
+        for i, (lp, L) in enumerate(zip(plan.layers, mlp.layers)):
+            p = arr[i]              # a view of the array's element
+            for k, v in lp.ints.items():
+                setattr(p, k, v)
+            p.a1, p.a2, p.out = at[lp.a1], at[lp.a2], at[lp.out]
+            p.stats_in, p.part_out, p.stats_out = (
+                at[lp.stats_in], at[lp.part_out], at[lp.stats_out])
+            p.w = (L.weight_p if lp.ints["kind"] == KIND_F32
+                   else L.weight_k).data_ptr()
+            p.bias = L.bias.data_ptr()
+            if i:
+                prev = mlp.layers[i - 1]
+                p.gs_in, p.gb_in = _ptr(prev.gn_scale), _ptr(prev.gn_bias)
+            if lp.phi:
+                setattr(p, lp.phi, self.phi.data_ptr())
+
+    def run(self) -> None:
+        at = ctypes.c_int(-1)
+        rc = self.lib.fq_chain(self.code, ctypes.byref(self.gather),
+                               self.layers, len(self.layers), self.stream,
+                               ctypes.byref(at))
+        if rc != 0:
+            what = "gather" if at.value == 0 else f"layer {at.value - 1}"
+            raise RuntimeError(f"fused_query launch {at.value} ({what}): "
+                               f"CUDA error {rc}")
+
+    def run_one(self, which: int) -> None:
+        _check(self.lib.fq_launch(self.code, ctypes.byref(self.gather),
+                                  self.layers, len(self.layers), which,
+                                  self.stream), f"launch {which}")
 
 
 def _launch(feat, uv, extra, mlp: PackedMLP, merge, num_groups, last_op,
             gn_scope):
-    """Gather + one layer launch per Dense + the phi activation."""
-    lib = _lib()
-    cd = mlp.compute_dtype
-    code = _DTYPE_CODE[cd]
-    dev = feat.device
-    H, W, C = feat.shape
-    N, E = extra.shape
-    K0p = _r8(C + E)
-    n_layers = len(mlp.layers)
-    seg_rows = N if gn_scope is None else int(gn_scope)
-    n_seg = _segments(N, gn_scope)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    x0 = torch.empty((N, K0p), dtype=cd, device=dev)
-    _check(lib.fq_gather(code, feat.data_ptr(), H, W, C, uv.data_ptr(),
-                         extra.data_ptr(), E, x0.data_ptr(), K0p, N, stream),
-           "gather")
-    hs, stats = [], []
-    pred = phi = None
-    for i, L in enumerate(mlp.layers):
-        M = int(L.weight.shape[0])
-        last = i == n_layers - 1
-        p = _LayerParams()
-        p.K1, p.K1p, p.K2p = L.k1, L.k1p, L.k2p
-        if i == 0:
-            p.a1, p.lda1, p.norm_in = x0.data_ptr(), K0p, 0
-        else:
-            prev = mlp.layers[i - 1]
-            p.a1, p.lda1 = hs[-1].data_ptr(), hs[-1].shape[1]
-            if prev.gn_scale is not None:
-                p.norm_in = 2
-                p.stats_in = stats[-1].data_ptr()
-                p.gs_in, p.gb_in = _ptr(prev.gn_scale), _ptr(prev.gn_bias)
-                p.cg_in, p.g_in = L.k1 // num_groups, num_groups
-            else:
-                p.norm_in = 1
-        if L.k2p:
-            p.a2, p.lda2 = x0.data_ptr(), K0p
-        p.w, p.bias, p.M, p.N = L.weight_p.data_ptr(), L.bias.data_ptr(), M, N
-        p.seg_rows, p.n_seg = seg_rows, n_seg
-        st = None
-        if last:
-            pred = torch.empty((N, M), dtype=torch.float32, device=dev)
-            p.out, p.ldo, p.last = pred.data_ptr(), M, 1
-            p.sigmoid = int(last_op == "sigmoid")
-            if merge == i:
-                phi = torch.empty((N, M), dtype=torch.float32, device=dev)
-                p.raw_out = phi.data_ptr()
-        else:
-            h = torch.empty((N, _r8(M)), dtype=cd, device=dev)
-            p.out, p.ldo = h.data_ptr(), h.shape[1]
-            if L.gn_scale is not None:
-                st = torch.empty((n_seg, num_groups, 2), dtype=torch.float32,
-                                 device=dev)
-                part = torch.empty((-(-N // BM), M, 2), dtype=torch.float32,
-                                   device=dev)
-                p.part_out, p.stats_out = part.data_ptr(), st.data_ptr()
-                p.cg_out, p.g_out = M // num_groups, num_groups
-            hs.append(h)
-        stats.append(st)
-        _check(lib.fq_layer(code, ctypes.byref(p), stream), f"layer {i}")
-    if 0 <= merge < n_layers - 1:
-        L = mlp.layers[merge]
-        M = int(L.weight.shape[0])
-        phi = torch.empty((N, M), dtype=torch.float32, device=dev)
-        gn = L.gn_scale is not None
-        _check(lib.fq_act(code, hs[merge].data_ptr(), hs[merge].shape[1], N,
-                          M, 2 if gn else 1, _ptr(stats[merge]),
-                          _ptr(L.gn_scale), _ptr(L.gn_bias),
-                          M // num_groups if gn else 1, num_groups, seg_rows,
-                          phi.data_ptr(), stream), "phi")
-    return pred, phi
+    """Gather + one layer launch per Dense, from one host call."""
+    c = Chain(feat, uv, extra, mlp, merge, num_groups, last_op, gn_scope)
+    c.run()
+    return c.pred, c.phi
 
 
 def _check_args(feat, uv, extra, mlp: PackedMLP, num_groups, gn_scope):
@@ -396,9 +557,9 @@ def _check_args(feat, uv, extra, mlp: PackedMLP, num_groups, gn_scope):
             if M > MAXK_NORM:
                 raise ValueError(f"layer {i}: normalised width {M} > "
                                  f"{MAXK_NORM}")
-            if gn_scope is not None and gn_scope % BM:
+            if gn_scope is not None and gn_scope % TILE_ROWS[cd]:
                 raise ValueError(f"gn_scope {gn_scope} must be a multiple "
-                                 f"of {BM}")
+                                 f"of {TILE_ROWS[cd]}")
 
 
 def fused_gather_mlp(feat: torch.Tensor, uv: torch.Tensor,
@@ -473,9 +634,12 @@ def gather_concat(feat: torch.Tensor, uv: torch.Tensor,
     if uv.shape != (N, 2) or N == 0:
         raise ValueError("expected uv [N, 2] and extra [N, E] with N > 0")
     x0 = torch.empty((N, K0p), dtype=feat.dtype, device=feat.device)
+    g = _GatherParams()
+    g.feat, g.uv, g.extra, g.x0 = (feat.data_ptr(), uv.data_ptr(),
+                                   extra.data_ptr(), x0.data_ptr())
+    g.H, g.W, g.C, g.E, g.ldx, g.N = H, W, C, E, K0p, N
     _check(_lib().fq_gather(
-        _DTYPE_CODE[feat.dtype], feat.data_ptr(), H, W, C, uv.data_ptr(),
-        extra.data_ptr(), E, x0.data_ptr(), K0p, N,
+        _DTYPE_CODE[feat.dtype], ctypes.byref(g),
         torch.cuda.current_stream(feat.device).cuda_stream), "gather")
     gather_concat.launches += 1
     return x0
