@@ -27,7 +27,10 @@ line each; any failure exits non-zero:
    beside its bounds and one ``torch.matmul`` of the same product.
 
 ``fused_point_mlp`` is held against its plain version in phase 3 as well
-(f32 and bf16, both full-width norm-free chains and ``bench_tiny``'s).
+(f32 and bf16, both full-width norm-free chains and ``bench_tiny``'s; in
+bf16 also at N that end in a ragged tile, in a ragged cluster, and below
+one cluster's tiles), and timed in phase 6 at clusters of 1, 2 and 4 beside
+the per-layer route of ``fused_gather_mlp`` on the same chain.
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 ``kernels`` JSON line, and ``{"ok": true, "device": {...}}``.
@@ -411,13 +414,14 @@ def _write_subject(root: str, stem: str, size: int, **shape) -> dict:
 
 
 class _Server:
-    """``cli/serve`` as a subprocess, driven line by line."""
+    """``cli/serve`` of the checkout at ``root`` as a subprocess, driven
+    line by line."""
 
-    def __init__(self, args, log_path):
+    def __init__(self, args, log_path, root=HERE):
         self.log = open(log_path, "w")
         self.proc = subprocess.Popen(
             [sys.executable, "-u", "-m", "rgbd_pifuhd_tpu_torch.cli.serve"]
-            + args, cwd=HERE, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            + args, cwd=root, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
             stderr=self.log, text=True, bufsize=1)
         self.log_path = log_path
 
@@ -857,14 +861,15 @@ def mlp_kernel_checks(torch, fq, fm, PointMLP, dev) -> dict:
     main_err = 0.0
     spread = {}
 
-    def check(label, m, x, cd, main=False):
+    def check(label, m, x, cd, main=False, block=None):
         nonlocal main_err
         packed = m.packed()
         for last_op in ("sigmoid", None):
-            kw = dict(res_layers=m.res_layers, last_op=last_op)
+            kw = dict(res_layers=m.res_layers, last_op=last_op, block=block)
             got = fm.fused_point_mlp(x, packed, **kw)
             again = fm.fused_point_mlp(x, packed, **kw)
-            ref = fm.fused_point_mlp_ref(x, packed, **kw)
+            ref = fm.fused_point_mlp_ref(x, packed, res_layers=m.res_layers,
+                                         last_op=last_op)
             torch.cuda.synchronize()
             if got.shape != ref.shape or not torch.isfinite(got).all():
                 fail(f"{label}: output shape/finiteness {tuple(got.shape)}")
@@ -881,7 +886,8 @@ def mlp_kernel_checks(torch, fq, fm, PointMLP, dev) -> dict:
             ok = err <= tol
             phase("check", f"fused_point_mlp {label} last_op={last_op}: "
                   f"max|d| {err:.3e} (tol {tol:.3g}, max|ref| {mag:.3g}, "
-                  f"block {fm.fused_point_mlp.last_block}) "
+                  f"tile {fm.fused_point_mlp.last_block}, cluster "
+                  f"{fm.fused_point_mlp.last_cluster}) "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 bad.append(f"{label} {last_op}")
@@ -900,6 +906,18 @@ def mlp_kernel_checks(torch, fq, fm, PointMLP, dev) -> dict:
                      * 0.7).to(cd)
                 check(f"{name} {'-'.join(map(str, chans))} {cd} N={N}", m, x,
                       cd, main=N == 262144)
+        # bf16 ragged edges: a ragged last tile in a ragged last cluster
+        # (an odd number of tiles; 6 tiles in clusters of 4), and N below
+        # one cluster's tiles (the other blocks run on zero rows)
+        m = _norm_free_mlp(torch, PointMLP, chans, res, torch.bfloat16, dev,
+                           seed=5)
+        bm = fm.plan_wgmma(m.packed()).bm
+        for N, block in ((bm * 9 + 1, None), (bm * 5 + 1, (None, 4)),
+                         (50, None), (50, (None, 4))):
+            x = (torch.randn((N, chans[0]), generator=gen, device=dev)
+                 * 0.7).to(torch.bfloat16)
+            check(f"{name} {'-'.join(map(str, chans))} bf16 ragged N={N}", m,
+                  x, torch.bfloat16, block=block)
     m32, m16 = _tiny_fine_mlps(torch, PointMLP, dev)
     for cd, m in ((torch.float32, m32), (torch.bfloat16, m16)):
         for N in (262144, 1000):
@@ -968,14 +986,16 @@ def time_mlp_kernel(torch, fq, fm, PointMLP, dev) -> dict:
         byts = N * chans[0] * 2 + w_bytes + N * chans[-1] * 4
         r = {"macs_per_point": macs, "flop": flop, "bytes": byts,
              "max_abs_diff_between_routes": d}
-        blocks = (64, 32) if name == "fine" else (32,)
-        for b in blocks:
-            r[f"chain_ms_block{b}"] = round(_event_ms(
-                torch, lambda: fm.fused_point_mlp(x0, packed, block=b, **kw),
-                10), 4)
+        # the chain alone at each cluster size (tile rows the plan's), then
+        # the plan's own choice, which sets chain_ms
+        for c in fm.CLUSTERS:
+            r[f"chain_ms_cluster{c}"] = round(_event_ms(
+                torch, lambda: fm.fused_point_mlp(x0, packed, block=(None, c),
+                                                  **kw), 10), 4)
         r["chain_ms"] = round(_event_ms(
             torch, lambda: fm.fused_point_mlp(x0, packed, **kw), 10), 4)
-        r["chain_block"] = fm.fused_point_mlp.last_block
+        r["chain_tile"] = fm.fused_point_mlp.last_block
+        r["chain_cluster"] = fm.fused_point_mlp.last_cluster
         r["chain_plain_ms"] = round(_event_ms(
             torch, lambda: fm.fused_point_mlp_ref(x0, packed, **kw), 3), 4)
         r["gather_plus_chain_ms"] = round(_event_ms(
@@ -991,7 +1011,9 @@ def time_mlp_kernel(torch, fq, fm, PointMLP, dev) -> dict:
         r.update(bound_ops_ms=round(ops_ms, 4),
                  bound_bytes_ms=round(bytes_ms, 4),
                  tflops=round(flop / (min(r["chain_ms"], r["chain_ms_again"])
-                                      * 1e-3) / 1e12, 2))
+                                      * 1e-3) / 1e12, 2),
+                 per_layer_route_tflops=round(
+                     flop / (r["per_layer_route_ms"] * 1e-3) / 1e12, 2))
         rows[name] = r
     phase("time", json.dumps({
         "work": "norm-free chains, N=262144, bf16, seeded weights",
@@ -1005,10 +1027,14 @@ def time_mlp_kernel(torch, fq, fm, PointMLP, dev) -> dict:
             >= f["bound_bytes_ms"] else "bytes",
             "library_ms": None,
             "shape": "fine 272-512-256-128-1, N=262144, bf16",
+            "tile": f["chain_tile"], "cluster": f["chain_cluster"],
+            "per_layer_route_ms": f["per_layer_route_ms"],
             "coarse_shape_ms": min(rows["coarse"]["chain_ms"],
                                    rows["coarse"]["chain_ms_again"]),
             "coarse_shape_bound_ms": rows["coarse"]["bound_ops_ms"],
-            "coarse_shape_plain_ms": rows["coarse"]["chain_plain_ms"]}
+            "coarse_shape_plain_ms": rows["coarse"]["chain_plain_ms"],
+            "coarse_shape_per_layer_route_ms":
+                rows["coarse"]["per_layer_route_ms"]}
 
 
 if __name__ == "__main__":

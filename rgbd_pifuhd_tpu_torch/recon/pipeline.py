@@ -709,7 +709,10 @@ def estimate_back_colors(colors: np.ndarray, xyz: np.ndarray,
     colour of up to ``k`` nearest-in-y boundary vertices (0 <= z < band) on
     its left (x' < x) and right (x' >= x) sides.  The boundary set is
     y-sorted once and each chunk of back vertices queries only a y-window
-    of candidates, so peak temporaries are O(chunk * window).
+    of candidates, so peak temporaries are O(chunk * window).  Boundary
+    vertices are ordered by their coordinates (and colour), so a vertex's
+    colour does not depend on the order of the vertex array; where no two
+    boundary vertices tie, the result is the JAX package's.
 
     A window is accepted per row and side only when it provably contains
     the k nearest same-side candidates — at least k valid candidates and
@@ -722,7 +725,12 @@ def estimate_back_colors(colors: np.ndarray, xyz: np.ndarray,
     boundary = np.nonzero((xyz[:, 2] >= 0) & (xyz[:, 2] < band))[0]
     if len(back) == 0 or len(boundary) == 0:
         return colors
-    order = np.argsort(xyz[boundary, 1], kind="stable")
+    # y first, then x, z and the colour: the window's contents, and so
+    # which of several equally near candidates argpartition keeps, follow
+    # from the vertices themselves and not from the marcher's vertex order
+    bxyz, bcol = xyz[boundary], colors[boundary]
+    order = np.lexsort((bcol[:, 2], bcol[:, 1], bcol[:, 0], bxyz[:, 2],
+                        bxyz[:, 0], bxyz[:, 1]))
     boundary = boundary[order]
     bx = np.ascontiguousarray(xyz[boundary, 0])
     by = np.ascontiguousarray(xyz[boundary, 1])

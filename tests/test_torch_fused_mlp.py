@@ -15,7 +15,11 @@ tolerance the card check of this kernel uses as well.  Without the head the
 same steps are held relative to the largest value: 4e-2.
 """
 
+import ctypes
 import os
+import re
+import stat
+import time
 
 import jax
 import jax.numpy as jnp
@@ -288,3 +292,200 @@ def test_dispatch_takes_whole_chain_only_for_norm_free_fine(tiny,
     tcoarse.query_mlp(gn, torch.zeros((1, 4, 4, 17)),
                       torch.zeros((1, 64, 2)), torch.zeros((1, 64, 3)), -1)
     assert calls["chain"] == 0 and calls["per_layer"] == [-1]
+
+
+# ------------------------------------------- the bf16 kernel's host side
+PLAN_SHAPES = {   # chain, residual layers, tile rows, x0 / weight stages
+    "coarse": ((257, 1024, 512, 256, 128, 1), (2, 3, 4), 64, (4, 4)),
+    "fine": ((272, 512, 256, 128, 1), (1, 2), 128, (2, 4)),
+    "bench_tiny": ((48, 64, 32, 1), (1,), 128, (4, 8)),
+}
+
+
+def _bf16_mlp(chans, res):
+    return tmodels.PointMLP(chans, 2, res, "none", dtype=torch.bfloat16,
+                            device="cpu").packed()
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_SHAPES))
+def test_wgmma_plan_fits_and_covers_every_layer(name):
+    chans, res, bm, stages = PLAN_SHAPES[name]
+    packed = _bf16_mlp(chans, res)
+    plan = fm.plan_wgmma(packed)
+    assert (plan.bm, (plan.xstages, plan.stages), plan.cluster) == (
+        bm, stages, fm.DEFAULT_CLUSTER)
+    assert plan.cp == 2 // (bm // 64)
+    # regions: activations at 0, the x0 ring, the weights' ring, each
+    # 1024-byte aligned, inside the block's 232,448 bytes with the static
+    # barriers
+    assert plan.xring_off == plan.a_bytes and plan.a_bytes % 1024 == 0
+    assert plan.ring_off == plan.xring_off + plan.xstages * plan.bm * fm.LINE
+    assert plan.ring_off % 1024 == 0 and plan.stage_bytes % 1024 == 0
+    assert plan.smem_bytes == plan.ring_off + plan.stages * \
+        plan.stage_bytes + 1024
+    assert plan.smem_bytes <= fm.SMEM_PLAN_MAX < 232448
+    assert 2 <= plan.xstages <= fm.MAX_STAGES
+    assert 2 <= plan.stages <= fm.MAX_STAGES
+    a_cols = plan.a_bytes // (plan.bm * 2)
+    n = len(chans) - 1
+    for i, (d, L) in enumerate(zip(plan.layers, packed.layers)):
+        M = chans[i + 1]
+        assert d["M"] == M and d["SC"] == plan.cp * d["CN"] <= 128
+        assert d["CN"] >= 8 and d["CN"] & (d["CN"] - 1) == 0
+        assert d["SC"] * fm.LINE <= plan.stage_bytes    # a weight box
+        assert d["P"] * d["SC"] >= M and (d["P"] - 1) * d["SC"] < M
+        assert d["G"] * d["CN"] // 2 <= 128 and d["G"] <= 4   # accumulators
+        assert (d["KT1"], d["KT2"]) == (L.k1k // 64, L.k2k // 64)
+        assert d["KT1"] * 64 >= (chans[0] if i == 0 else chans[i])
+        assert d["KT2"] * 64 == (-(-chans[0] // 64) * 64 if i in res else 0)
+        if i > 0:       # reads the resident activations, writes over them
+            assert d["P"] <= d["G"] and d["KT1"] * 64 <= a_cols
+        if i < n - 1:   # the next layer's K padding is written as well
+            assert d["SC"] % 64 == 0 and d["P"] * d["SC"] <= a_cols
+    assert plan is not fm.plan_wgmma(packed) and \
+        fm.plan_wgmma(packed) == plan
+
+
+def test_wgmma_plan_hints():
+    fine = _bf16_mlp(*PLAN_SHAPES["fine"][:2])
+    p64 = fm.plan_wgmma(fine, rows=64, cluster=4)
+    assert (p64.bm, p64.cp, p64.cluster, p64.xstages, p64.stages) == (
+        64, 2, 4, 4, 8)
+    assert [d["CN"] for d in p64.layers] == [64, 64, 64, 8]
+    assert [d["P"] for d in p64.layers] == [4, 2, 1, 1]
+    coarse = _bf16_mlp(*PLAN_SHAPES["coarse"][:2])
+    assert [d["P"] for d in fm.plan_wgmma(coarse).layers] == [8, 4, 2, 1, 1]
+    assert [d["G"] for d in fm.plan_wgmma(coarse).layers] == [4, 4, 2, 1, 1]
+    # 128 rows of the 1024-wide activation do not fit; 512 columns of a
+    # layer that reads resident activations would need two groups
+    with pytest.raises(ValueError, match="fits shared memory"):
+        fm.plan_wgmma(coarse, rows=128)
+    for bad in (dict(rows=32), dict(cluster=3)):
+        with pytest.raises(ValueError):
+            fm.plan_wgmma(fine, **bad)
+    f32 = tmodels.PointMLP((48, 64, 32, 1), 2, (1,), "none",
+                           device="cpu").packed()
+    with pytest.raises(ValueError, match="bf16"):
+        fm.plan_wgmma(f32)
+    assert fm._hint(None) == (None, None) and fm._hint(64) == (64, None)
+    assert fm._hint((None, 4)) == (None, 4) and fm._hint((128, 1)) == (128, 1)
+
+
+def test_wgmma_params_from_plan():
+    chans, res = PLAN_SHAPES["coarse"][:2]
+    packed = _bf16_mlp(chans, res)
+    plan = fm.plan_wgmma(packed, cluster=1)
+    x = torch.zeros((100, 264), dtype=torch.bfloat16)
+    out = torch.zeros((100, 1))
+    p = fm.wg_params(x, out, packed, plan, "sigmoid")
+    assert (p.x, p.out) == (x.data_ptr(), out.data_ptr())
+    assert (p.n_layers, p.N, p.C0, p.ldx, p.sigmoid) == (5, 100, 257, 264, 1)
+    assert (p.bm, p.cluster, p.stages, p.stage_bytes, p.ring_off, p.xstages,
+            p.xring_off, p.smem_bytes) == (
+        plan.bm, 1, plan.stages, plan.stage_bytes, plan.ring_off,
+        plan.xstages, plan.xring_off, plan.smem_bytes)
+    for i, (d, L) in enumerate(zip(plan.layers, packed.layers)):
+        assert p.w[i] == L.weight_k.data_ptr()
+        b = fm.padded_biases(packed, plan)[i]
+        assert p.bias[i] == b.data_ptr() and len(b) == d["P"] * d["SC"]
+        assert torch.equal(b[:d["M"]], L.bias) and not b[d["M"]:].any()
+        assert [getattr(p, k)[i] for k in ("M", "KT1", "KT2", "CN", "P",
+                                            "G")] == \
+            [d[k] for k in ("M", "KT1", "KT2", "CN", "P", "G")]
+    assert list(p.M)[5:] == [0, 0, 0]
+
+
+@pytest.mark.parametrize("name", ["coarse", "fine"])
+def test_k_padded_weights(name, rng):
+    """The kernel's weights: each K range (h, then x0 for a residual layer)
+    zero-padded to a multiple of 64, the residual rows at the x0 range."""
+    chans, res = PLAN_SHAPES[name][:2]
+    m = tmodels.PointMLP(chans, 2, res, "none", dtype=torch.bfloat16,
+                         device="cpu")
+    with torch.no_grad():
+        for i in range(m.n_layers):
+            lin = getattr(m, f"dense{i}")
+            lin.weight.copy_(torch.from_numpy(rng.standard_normal(
+                tuple(lin.weight.shape)).astype(np.float32)) + 3.0)
+    m._packed.clear()
+    for i, L in enumerate(m.packed().layers):
+        w, wk = L.weight, L.weight_k
+        k1 = chans[0] if i == 0 else chans[i]
+        k2 = chans[0] if i in res else 0
+        assert wk.shape == (chans[i + 1], L.k1k + L.k2k)
+        assert L.k1k == -(-k1 // 64) * 64 and L.k2k == -(-k2 // 64) * 64
+        assert torch.equal(wk[:, :k1], w[:, :k1])
+        assert not wk[:, k1:L.k1k].any()
+        assert torch.equal(wk[:, L.k1k:L.k1k + k2], w[:, k1:])
+        assert not wk[:, L.k1k + k2:].any()
+        assert (wk[:, :k1] != 0).all()
+
+
+def _c_struct(name):
+    """[(field name, 'ptr' | 'int', count)] of ``struct <name>`` in
+    fused_mlp.cu, in declaration order."""
+    src = open(fm._SRC).read()
+    body = re.search(r"struct %s \{(.*?)\n\};" % name, src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    out = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        kind = "ptr" if "*" in decl else "int"
+        if kind == "int":
+            assert decl.split(None, 1)[0] == "int", decl
+            names = decl.split(None, 1)[1]
+        else:
+            names = decl.split("*")[-1]
+        for n in names.split(","):
+            n = n.strip()
+            count = 1
+            if n.endswith("[MAX_LAYERS]"):
+                n, count = n[:-len("[MAX_LAYERS]")], fm.MAX_LAYERS
+            out.append((n, kind, count))
+    return out
+
+
+@pytest.mark.parametrize("cname,mirror", [("MlpParams", "_MlpParams"),
+                                          ("WgParams", "_WgParams")])
+def test_ctypes_mirror_matches_c_struct(cname, mirror):
+    fields = _c_struct(cname)
+    got = getattr(fm, mirror)._fields_
+    assert [n for n, _ in got] == [n for n, _, _ in fields]
+    for (n, t), (_, kind, count) in zip(got, fields):
+        base = ctypes.c_void_p if kind == "ptr" else ctypes.c_int
+        assert t == (base if count == 1 else base * count), n
+    size = sum((8 if k == "ptr" else 4) * c for _, k, c in fields)
+    assert ctypes.sizeof(getattr(fm, mirror)) == -(-size // 8) * 8
+
+
+def test_build_rebuilds_when_hopper_header_is_newer(tmp_path, monkeypatch):
+    """``fused_mlp.build`` goes through ``build_cuda``: the library is
+    rebuilt when ``hopper.cuh`` beside the source is newer (stub nvcc)."""
+    bindir, src_dir = tmp_path / "bin", tmp_path / "csrc"
+    bindir.mkdir()
+    src_dir.mkdir()
+    log = tmp_path / "calls.log"
+    nvcc = bindir / "nvcc"
+    nvcc.write_text("#!/bin/sh\n"
+                    f"echo \"$@\" >> {log}\n"
+                    "while [ \"$1\" != \"-o\" ]; do shift; done\n"
+                    "echo lib > \"$2\"\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    src, hdr = src_dir / "fused_mlp.cu", src_dir / "hopper.cuh"
+    src.write_text('#include "hopper.cuh"\n')
+    hdr.write_text("// helpers\n")
+    so = tmp_path / "_build" / "libfused_mlp.so"
+    monkeypatch.setattr(fm, "_SRC", str(src))
+    monkeypatch.setattr(fm, "_SO", str(so))
+    old = time.time() - 100
+    for f in (src, hdr):
+        os.utime(f, (old, old))
+    fm.build()
+    assert so.exists() and len(log.read_text().splitlines()) == 1
+    fm.build()
+    assert len(log.read_text().splitlines()) == 1       # up to date
+    new = time.time() + 100
+    os.utime(hdr, (new, new))
+    fm.build()
+    calls = log.read_text().splitlines()
+    assert len(calls) == 2 and "sm_90a" in calls[1] and str(src) in calls[1]
