@@ -13,24 +13,34 @@ line each; any failure exits non-zero:
 4. main path: flagship-lite ``gen_mesh`` at 512^3 on the capsule subject,
    three times (warm-up + two timed), every field query through the
    kernel (launch count checked), OBJ checked;
-5. the served path: request directories written as PNG files, then the
+5. the other inference paths, flagship-lite at full width and 512^3, warm
+   (the main path's escalated budgets): ``[grad]`` (``normal_mode='grad'``,
+   and the colour pass alone in both modes on one mesh, with the median
+   cosine between their normals), ``[mesh_normals]`` (geometric normals, no
+   colour query), ``[two_level]`` (``octree_levels=2``), ``[dense]``
+   (``use_octree=False``: field, pull and march seconds) and
+   ``[coarse_only]`` (``CoarseReconstructor`` on flagship-lite's ``netG``),
+   each with the kernel launches it caused (counts set to 0 just before);
+6. the served path: request directories written as PNG files, then the
    resident server ``cli/serve`` as a subprocess twice — (a) flagship-lite
    at full width, 512^3: a bad request, one subject twice (cold, warm), a
    two-subject directory (``gen_mesh_many``); (b) ``bench_tiny`` (norm-free,
    so its fine level runs ``fused_point_mlp``) with image colours, cleanup
-   and PLY — and one ``cli/run_recon`` batch call on (b)'s directory; the
-   launch counts each process reports are checked against its field
-   queries, the mesh files against the replies;
-6. times (CUDA events) of both kernels and their plain versions at the
+   and PLY — one ``cli/run_recon`` batch call on (b)'s directory, and
+   ``[serve_jpeg]``: a flagship-lite server answering the committed JPEG
+   subject (``tests/data/jpeg_subject``); the launch counts each process
+   reports are checked against its field queries, the mesh files against
+   the replies;
+7. times (CUDA events) of both kernels and their plain versions at the
    full-width shapes, beside the card's bound for the same work, and of
    every launch of the coarse and the fine chain alone (``[time_layers]``)
    beside its bounds and one ``torch.matmul`` of the same product.
 
 ``fused_point_mlp`` is held against its plain version in phase 3 as well
 (f32 and bf16, both full-width norm-free chains and ``bench_tiny``'s; in
-bf16 also at N that end in a ragged tile, in a ragged cluster, and below
-one cluster's tiles), and timed in phase 6 at clusters of 1, 2 and 4 beside
-the per-layer route of ``fused_gather_mlp`` on the same chain.
+bf16 also at N that end in a ragged tile and below one tile), and timed in
+phase 6 beside the per-layer route of ``fused_gather_mlp`` on the same
+chain.
 
 The last three lines are the card's name and power limit (nvidia-smi), the
 ``kernels`` JSON line, and ``{"ok": true, "device": {...}}``.
@@ -164,7 +174,11 @@ def main() -> None:
 
     # ---- 4. main path
     kernels_only = "--kernels-only" in sys.argv[1:]
-    launches = 0 if kernels_only else main_path(torch, fq, model, opt, dev)
+    launches, esc = (0, {}) if kernels_only else main_path(torch, fq, model,
+                                                           opt, dev)
+    # ---- 5. the other inference paths
+    paths = {} if kernels_only else other_paths(torch, fq, fm, model, opt,
+                                                dev, esc)
 
     served = {} if kernels_only else served_path()
     mlp_launches = served.get("b", {}).get("fused_point_mlp", 0)
@@ -190,6 +204,10 @@ def main() -> None:
     kern["launches_by_process"] = {
         "in_memory_gen_mesh": launches,
         **{k: v["fused_gather_mlp"] for k, v in served.items()}}
+    kern["launches_by_path"] = {k: v["fused_gather_mlp"]
+                                for k, v in paths.items()}
+    kern2["launches_by_path"] = {k: v["fused_point_mlp"]
+                                 for k, v in paths.items()}
     print(smi_line)
     print(json.dumps({"kernels": [kern, kern2]}))
     if kernels_only:
@@ -387,7 +405,201 @@ def main_path(torch, fq, model, opt, dev) -> int:
     phase("main", f"gen_mesh 512^3 timed runs: {[round(s, 4) for s in secs]}"
           f" s; OBJ {path} ({os.path.getsize(path)} bytes, removed)")
     os.remove(path)
-    return launches
+    return launches, recon._esc_budgets
+
+
+# ------------------------------------------------ the other inference paths
+def _counts(torch, fq, fm, fn):
+    """``fn()`` with every kernel's launch count set to 0 just before it;
+    returns ``(fn's result, the counts just after)``."""
+    for k in (fq.fused_gather_mlp, fq.gather_concat, fm.fused_point_mlp):
+        k.launches = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"fused_gather_mlp": fq.fused_gather_mlp.launches,
+                 "gather_concat": fq.gather_concat.launches,
+                 "fused_point_mlp": fm.fused_point_mlp.launches}
+
+
+def _check_mesh(label, out, cv) -> None:
+    """Non-empty, finite, valid faces, and the bbox holds the subject's
+    centre."""
+    import numpy as np
+
+    v, f = out["verts"], out["faces"]
+    if not (len(v) and len(f) and np.isfinite(v).all() and f.min() >= 0
+            and f.max() < len(v)):
+        fail(f"{label}: malformed mesh ({len(v)} verts, {len(f)} faces)")
+    lo, hi = v.min(0), v.max(0)
+    centre = (cv.min(0) + cv.max(0)) / 2
+    if not ((lo <= centre) & (centre <= hi)).all():
+        fail(f"{label}: the mesh bbox {lo}..{hi} misses the subject centre "
+             f"{centre}")
+
+
+def _cos(a, b):
+    import numpy as np
+
+    return (a * b).sum(1) / np.maximum(
+        np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1), 1e-12)
+
+
+def _plain_grad_normals(torch, model, feats, pts, calib):
+    """Unit negative gradient of ``MultiResPIFu.field_last``'s chunk sum
+    at ``pts [M, 3]`` by plain autograd through the port's modules
+    (``geom.index`` and ``PointMLP.forward``), no kernel."""
+    from rgbd_pifuhd_tpu_torch.models.coarse import _level_plain
+    from rgbd_pifuhd_tpu_torch.ops import geometry as geom
+
+    l_feats, g_feats = feats
+    cg = model.netG.cfg
+    with torch.enable_grad():
+        p = pts.clone().requires_grad_()
+        xyz = geom.PROJECTIONS[cg.projection_mode](p[None], calib[None])[0]
+        sp = geom.depth_normalize(xyz, cg.load_size, cg.z_size)
+        _, phi = _level_plain(model.netG.mlp, g_feats.im_feats[-1][0].to(
+            model.netG.mlp.packed().compute_dtype), xyz[:, :2], sp)
+        xyz_l = geom.PROJECTIONS[model.cfg.projection_mode](p[None],
+                                                            calib[None])[0]
+        pred, _ = _level_plain(model.mlp, l_feats.im_feats[-1][0].to(
+            model.mlp.packed().compute_dtype), xyz_l[:, :2], phi)
+        (g,) = torch.autograd.grad(pred.sum(), p)
+    return -g / torch.clamp(torch.linalg.norm(g, dim=-1, keepdim=True),
+                            min=1e-8)
+
+
+def other_paths(torch, fq, fm, model, opt, dev, esc) -> dict:
+    """Phase 5: grad and mesh normals, the two-level octree, the dense
+    lattice and the coarse model alone, on the capsule at 512^3.  Returns
+    each path's launch counts."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from rgbd_pifuhd_tpu_torch.data.synthetic import capsule_subject
+    from rgbd_pifuhd_tpu_torch.recon import CoarseReconstructor, Reconstructor
+
+    rgbd, calib, cv, _ = capsule_subject(512)
+    data = {"img": rgbd[None], "img_512": rgbd[None], "calib": calib}
+    path = os.path.join(OUT_DIR, "path.obj")
+    counts = {}
+
+    def recon_for(cls=Reconstructor, m=model, **kw):
+        r = cls(m, dataclasses.replace(opt, **kw), device=dev)
+        r._esc_budgets = copy.deepcopy(esc)
+        return r
+
+    def run(r, label, levels=2):
+        out, n = _counts(torch, fq, fm, lambda: r.gen_mesh(
+            data, path, resolution=512))
+        _check_mesh(label, out, cv)
+        if n["fused_gather_mlp"] != levels * out["query_calls"] or \
+                n["fused_point_mlp"]:
+            fail(f"{label}: launches {n} for {out['query_calls']} field "
+                 f"queries (want {levels} fused_gather_mlp each)")
+        return out, n
+
+    def summary(out, n):
+        return {"secs": round(out["secs"], 4), "verts": len(out["verts"]),
+                "faces": len(out["faces"]), "query_calls": out["query_calls"],
+                "points_queried": out["points_queried"],
+                "host_secs": out["host_secs"], "launches": n,
+                "bbox": [out["verts"].min(0).round(3).tolist(),
+                         out["verts"].max(0).round(3).tolist()]}
+
+    # ---- grad normals: gen_mesh, then the colour pass alone on its mesh in
+    # both modes (the same vertices, the same chunks)
+    r_grad = recon_for(normal_mode="grad")
+    first = run(r_grad, "grad run 0")[0]["secs"]   # the backward's first use
+    out, n = run(r_grad, "grad run 1")
+    r_fd = recon_for()
+    with torch.no_grad():
+        feats = r_grad.encode(r_grad._tensor(data["img"]),
+                              r_grad._tensor(data["img_512"]))
+        calib_t = r_grad._tensor(calib)
+        colour_s, cols = {}, {}
+        for mode, r in (("fd", r_fd), ("grad", r_grad)):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            cols[mode] = r.color_by_normals_start(out["verts"], feats,
+                                                  calib_t)()
+            colour_s[mode] = round(time.time() - t0, 4)
+    cos = _cos(cols["grad"] * 2 - 1, cols["fd"] * 2 - 1)
+    if not np.isfinite(cols["grad"]).all():
+        fail("grad: colours not finite")
+    # the gradient itself, on one 65,536-vertex chunk with f32 copies of
+    # the MLPs: the pipeline's (the kernels forward, the autograd
+    # function's backward) against plain autograd through the port's
+    # modules (no kernel)
+    m32 = copy.deepcopy(model)
+    for m in (m32.mlp, m32.netG.mlp):
+        m.dtype = None
+        m._packed.clear()
+    r32 = recon_for(m=m32, normal_mode="grad")
+    pts = torch.from_numpy(out["verts"][:65536]).to(dev)
+    got = r32._grad_normals(pts, feats, calib_t)
+    ref = _plain_grad_normals(torch, m32, feats, pts, calib_t)
+    cos_k = _cos(got.cpu().numpy(), ref.cpu().numpy())
+    if not float(np.median(cos_k)) > 0.999:
+        fail(f"grad: the pipeline's gradient against plain autograd: "
+             f"median cosine {np.median(cos_k)}")
+    phase("grad", json.dumps({
+        **summary(out, n), "secs_runs": [round(first, 4),
+                                         round(out["secs"], 4)],
+        "colour_pass_secs_same_mesh": colour_s,
+        "median_cos_grad_vs_fd": round(float(np.median(cos)), 4),
+        "p10_p90_cos_grad_vs_fd": [round(float(np.percentile(cos, q)), 4)
+                                   for q in (10, 90)],
+        "f32_chunk_vs_plain_autograd_cos_median_p1_min": [
+            round(float(np.median(cos_k)), 6),
+            round(float(np.percentile(cos_k, 1)), 6),
+            round(float(cos_k.min()), 6)]}))
+    counts["grad"] = n
+
+    # ---- geometric normals: no device colour pass
+    out, n = run(recon_for(normal_mode="mesh"), "mesh_normals")
+    if "color" in out["points_queried"]:
+        fail(f"mesh_normals: colour queries {out['points_queried']}")
+    phase("mesh_normals", json.dumps({
+        **summary(out, n), "colour_launches": 0,
+        "field_queries_only": list(out["points_queried"]) == ["field"]}))
+    counts["mesh_normals"] = n
+
+    # ---- two-level octree: twice (the first may right-size its budget)
+    r2 = recon_for(octree_levels=2)
+    outs = [run(r2, f"two_level run {k}") for k in range(2)]
+    out, n = outs[-1]
+    phase("two_level", json.dumps({
+        **summary(out, n), "secs_runs": [round(o["secs"], 4)
+                                         for o, _ in outs],
+        "grid_diag": out["grid_diag"]}))
+    counts["two_level"] = n
+
+    # ---- dense lattice: res^2 points a query call
+    out, n = run(recon_for(use_octree=False), "dense")
+    if out["query_calls"] < 512:
+        fail(f"dense: {out['query_calls']} query calls, want 512 + colours")
+    hs = out["host_secs"]
+    phase("dense", json.dumps({
+        **summary(out, n), "field_s": hs.get("field"),
+        "pull_s": hs.get("pull"), "march_s": hs.get("march")}))
+    counts["dense"] = n
+
+    # ---- the coarse model alone: twice (its own budgets)
+    rc = recon_for(CoarseReconstructor, model.netG)
+    rc._esc_budgets = {}
+    outs = [run(rc, f"coarse_only run {k}", levels=1) for k in range(2)]
+    out, n = outs[-1]
+    phase("coarse_only", json.dumps({
+        **summary(out, n), "secs_runs": [round(o["secs"], 4)
+                                         for o, _ in outs],
+        "grid_diag": out["grid_diag"]}))
+    counts["coarse_only"] = n
+    os.remove(path)
+    os.remove(path[:-4] + ".png")
+    return counts
 
 
 # ------------------------------------------------------------ served path
@@ -654,9 +866,59 @@ def served_path() -> dict:
         "model": "bench_tiny, 512^3, fd colours, OBJ",
         "process_s": round(time.time() - t0, 2), "verts": len(pos),
         "faces": n_f, "launches": n}))
+    # ---- [serve_jpeg]: flagship-lite answers the committed JPEG subject
+    counts["jpeg"] = served_jpeg(results)
     for d in (dir_a, dir_b, results):
         shutil.rmtree(d)
     return counts
+
+
+def _subject_box(size: int) -> dict:
+    """The capsule subject's bbox in the server's coordinates (NDC, y
+    up), as ``_write_subject`` returns it."""
+    import numpy as np
+
+    from rgbd_pifuhd_tpu_torch.data.synthetic import capsule_subject
+
+    _, calib, cv, _ = capsule_subject(size)
+    ndc = cv @ calib[:3, :3].T.astype(np.float64) + calib[:3, 3]
+    ndc[:, 1] *= -1.0
+    return {"lo": ndc.min(0), "hi": ndc.max(0)}
+
+
+def served_jpeg(results: str) -> dict:
+    """A flagship-lite server (512^3, fd colours, OBJ) answers the capsule
+    as a JPEG file (``tests/data/jpeg_subject``: 512^2, quality 90, 4:2:0,
+    decoded by ``utils/jpeg.py``); returns the process's launch counts."""
+    src = os.path.join(HERE, "tests", "data", "jpeg_subject")
+    t0 = time.time()
+    srv = _Server(["--load_netMR_checkpoint_path", CKPT, "--results_path",
+                   results, "--name", "jpeg", "--resolution", "512",
+                   "--loadSize", "1024"],
+                  os.path.join(OUT_DIR, "serve_jpeg.log"))
+    try:
+        (ready,) = srv.read(1)
+        if ready.get("ready") is not True:
+            fail(f"(jpeg) no ready line: {ready}")
+        t_ready = time.time() - t0
+        (reply,), s_req = srv.ask(f"{src}::capsule")
+        n = srv.quit()
+    finally:
+        srv.kill()
+    if "mesh" not in reply:
+        fail(f"(jpeg) reply {reply}")
+    pos, n_f = _obj_positions(reply["mesh"], reply["verts"])
+    _check_bbox("(jpeg) capsule", pos, _subject_box(512))
+    if not (n["query_calls"] > 0
+            and n["fused_gather_mlp"] == 2 * n["query_calls"]):
+        fail(f"(jpeg) launch counts {n}")
+    phase("serve_jpeg", json.dumps({
+        "model": "flagship-lite, bf16, 512^3, fd colours, OBJ",
+        "subject": "tests/data/jpeg_subject/capsule.jpg (512^2, q90, 4:2:0)",
+        "ready_s": round(t_ready, 2), "cold_request_s": round(s_req, 3),
+        "server_secs": reply["secs"], "read_secs": reply["read_secs"],
+        "verts": len(pos), "faces": n_f, "launches": n}))
+    return n
 
 
 def profile_gen_mesh(torch, model, opt, dev) -> None:
@@ -861,11 +1123,11 @@ def mlp_kernel_checks(torch, fq, fm, PointMLP, dev) -> dict:
     main_err = 0.0
     spread = {}
 
-    def check(label, m, x, cd, main=False, block=None):
+    def check(label, m, x, cd, main=False):
         nonlocal main_err
         packed = m.packed()
         for last_op in ("sigmoid", None):
-            kw = dict(res_layers=m.res_layers, last_op=last_op, block=block)
+            kw = dict(res_layers=m.res_layers, last_op=last_op)
             got = fm.fused_point_mlp(x, packed, **kw)
             again = fm.fused_point_mlp(x, packed, **kw)
             ref = fm.fused_point_mlp_ref(x, packed, res_layers=m.res_layers,
@@ -886,8 +1148,7 @@ def mlp_kernel_checks(torch, fq, fm, PointMLP, dev) -> dict:
             ok = err <= tol
             phase("check", f"fused_point_mlp {label} last_op={last_op}: "
                   f"max|d| {err:.3e} (tol {tol:.3g}, max|ref| {mag:.3g}, "
-                  f"tile {fm.fused_point_mlp.last_block}, cluster "
-                  f"{fm.fused_point_mlp.last_cluster}) "
+                  f"tile {fm.fused_point_mlp.last_block}) "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 bad.append(f"{label} {last_op}")
@@ -906,18 +1167,16 @@ def mlp_kernel_checks(torch, fq, fm, PointMLP, dev) -> dict:
                      * 0.7).to(cd)
                 check(f"{name} {'-'.join(map(str, chans))} {cd} N={N}", m, x,
                       cd, main=N == 262144)
-        # bf16 ragged edges: a ragged last tile in a ragged last cluster
-        # (an odd number of tiles; 6 tiles in clusters of 4), and N below
-        # one cluster's tiles (the other blocks run on zero rows)
+        # bf16 ragged edges: a ragged last tile (an odd and an even number
+        # of tiles), and N below one tile
         m = _norm_free_mlp(torch, PointMLP, chans, res, torch.bfloat16, dev,
                            seed=5)
         bm = fm.plan_wgmma(m.packed()).bm
-        for N, block in ((bm * 9 + 1, None), (bm * 5 + 1, (None, 4)),
-                         (50, None), (50, (None, 4))):
+        for N in (bm * 9 + 1, bm * 6 + 1, 50):
             x = (torch.randn((N, chans[0]), generator=gen, device=dev)
                  * 0.7).to(torch.bfloat16)
             check(f"{name} {'-'.join(map(str, chans))} bf16 ragged N={N}", m,
-                  x, torch.bfloat16, block=block)
+                  x, torch.bfloat16)
     m32, m16 = _tiny_fine_mlps(torch, PointMLP, dev)
     for cd, m in ((torch.float32, m32), (torch.bfloat16, m16)):
         for N in (262144, 1000):
@@ -986,16 +1245,9 @@ def time_mlp_kernel(torch, fq, fm, PointMLP, dev) -> dict:
         byts = N * chans[0] * 2 + w_bytes + N * chans[-1] * 4
         r = {"macs_per_point": macs, "flop": flop, "bytes": byts,
              "max_abs_diff_between_routes": d}
-        # the chain alone at each cluster size (tile rows the plan's), then
-        # the plan's own choice, which sets chain_ms
-        for c in fm.CLUSTERS:
-            r[f"chain_ms_cluster{c}"] = round(_event_ms(
-                torch, lambda: fm.fused_point_mlp(x0, packed, block=(None, c),
-                                                  **kw), 10), 4)
         r["chain_ms"] = round(_event_ms(
             torch, lambda: fm.fused_point_mlp(x0, packed, **kw), 10), 4)
         r["chain_tile"] = fm.fused_point_mlp.last_block
-        r["chain_cluster"] = fm.fused_point_mlp.last_cluster
         r["chain_plain_ms"] = round(_event_ms(
             torch, lambda: fm.fused_point_mlp_ref(x0, packed, **kw), 3), 4)
         r["gather_plus_chain_ms"] = round(_event_ms(
@@ -1027,7 +1279,7 @@ def time_mlp_kernel(torch, fq, fm, PointMLP, dev) -> dict:
             >= f["bound_bytes_ms"] else "bytes",
             "library_ms": None,
             "shape": "fine 272-512-256-128-1, N=262144, bf16",
-            "tile": f["chain_tile"], "cluster": f["chain_cluster"],
+            "tile": f["chain_tile"],
             "per_layer_route_ms": f["per_layer_route_ms"],
             "coarse_shape_ms": min(rows["coarse"]["chain_ms"],
                                    rows["coarse"]["chain_ms_again"]),

@@ -1,6 +1,7 @@
-"""What both entry points share: loading a checkpoint into a
-``Reconstructor``, reading a subject, naming its mesh file, and the kernel
-launch counters they report."""
+"""What both entry points share: loading a checkpoint (the JAX package's
+msgpack, or a reference ``.pth``) into a ``Reconstructor``, reading a
+subject, naming its mesh file, and the kernel launch counters they
+report."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from ..recon.pipeline import Reconstructor
 from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.options import Options
+from ..utils.torch_import import reconcile_with_model
 
 
 def latest_path(checkpoints_path: str, name: str) -> str:
@@ -20,25 +22,35 @@ def latest_path(checkpoints_path: str, name: str) -> str:
 
 
 def load_reconstructor(opt: Options, device: str, full_opts: bool = False):
-    """Checkpoint named by ``opt`` -> ``(Reconstructor, model options,
-    checkpoint path)``.  ``full_opts`` takes every option the checkpoint
-    embeds (the trained demo); otherwise the command line keeps the run's
-    fields (``Options.restore_from_checkpoint_dict``)."""
+    """Checkpoint named by ``opt`` (the JAX package's msgpack or a reference
+    ``.pth``) -> ``(Reconstructor, model options, checkpoint path)``.
+    ``full_opts`` takes every option the checkpoint embeds (the trained
+    demo); otherwise the command line keeps the run's fields
+    (``Options.restore_from_checkpoint_dict``: ``normal_mode`` among them).
+    ``--octree_levels`` and ``--no_octree`` always come from the command
+    line."""
     dev = resolve_device(device)
     path = opt.load_netMR_checkpoint_path or latest_path(
         opt.checkpoints_path, opt.name)
     if not os.path.exists(path):
         raise SystemExit(f"checkpoint not found: {path}")
     state = ckpt.load_checkpoint(path, device=dev)
-    if state.get("torch_import"):
-        raise SystemExit(f"{path}: checkpoints imported from a reference "
-                         ".pth file are not supported yet")
     if full_opts:
         opt_model = Options.from_dict(state["opt"])
     else:
         opt_model, _ = ckpt.restore_options(opt, state)
+    # how this run evaluates the field is the command line's: the JAX
+    # package's CLIs let the checkpoint's saved values win (so there
+    # --octree_levels / --no_octree do nothing with a checkpoint)
+    opt_model.octree_levels = opt.octree_levels
+    opt_model.use_octree = opt.use_octree
     model = MultiResPIFu(opt_model.netMR, opt_model.netG, device=dev)
-    ckpt.load_params(model, state["params"])
+    sd = ckpt.params_from_flax(state["params"])
+    if state.get("torch_import"):
+        # a reference .pth: its 3-channel netF / netB stems widen to the
+        # port's 6-channel input
+        sd = reconcile_with_model(sd, model)
+    model.load_state_dict(sd, strict=True)
     return Reconstructor(model, opt_model, device=dev), opt_model, path
 
 

@@ -3,10 +3,16 @@
     python3 -m rgbd_pifuhd_tpu_torch.cli.run_recon --dataroot <dir> \\
         --load_netMR_checkpoint_path <ckpt> --results_path <dir> [--device cpu]
 
-The checkpoint's embedded options override the command line except
-dataroot / resolution / results_path / loadSize and the export preferences.
+The checkpoint is the JAX package's msgpack file or a reference ``.pth``
+(its 3-channel netF / netB stems widened to the 6-channel input).  Its
+embedded options override the command line except dataroot / resolution /
+results_path / loadSize, the export preferences (``--normal_mode fd|grad|
+mesh``, ``--mesh_format``) and the field evaluation (``--octree_levels
+2|3``, ``--no_octree``).  Subjects are PNG or baseline JPEG files.
 ``--start_id`` / ``--end_id`` select a range of the directory's subjects;
-more than one subject goes through the two-slot ``gen_mesh_many``.
+more than one subject goes through the two-slot ``gen_mesh_many`` (which
+evaluates the octree field, as in the JAX package), unless
+``--no_octree``.
 
 ``--demo-trained`` is the hermetic demo with a real field: it loads the
 committed trained-tiny two-level checkpoint (``assets/bench_tiny``),

@@ -10,9 +10,10 @@ Protocol — one request per stdin line:
     <dataroot>::<stem>      only the subject named <stem>
     quit                    exit cleanly
 
-Requests use the ``InferenceDataset`` conventions (``<stem>.png`` +
-``<stem>_rect.txt`` + ``depth/depth_<stem>.png``).  One JSON line per
-produced mesh on stdout:
+Requests use the ``InferenceDataset`` conventions (``<stem>.png``,
+``.jpg`` or ``.jpeg`` + ``<stem>_rect.txt`` + ``depth/depth_<stem>.png``).
+The checkpoint may be a reference ``.pth``.  One JSON line per produced
+mesh on stdout:
 
     {"name": ..., "mesh": "<path>", "verts": N, "secs": S}
 
@@ -22,8 +23,8 @@ spent decoding and resizing the subject's images)
 a ``{"ready": true}`` line once the model is loaded, per failed request an
 ``{"error": ..., "request": ...}`` line (the server keeps running), and a
 last ``{"quit": true, "launches": {...}}`` line with the process's kernel
-launch counts.  ``--use_color`` and ``--mesh_format`` hold for the whole
-process.
+launch counts.  ``--use_color``, ``--mesh_format``, ``--normal_mode``,
+``--octree_levels`` and ``--no_octree`` hold for the whole process.
 """
 
 from __future__ import annotations

@@ -38,21 +38,16 @@
 // device memory; a one-column head is a layer with eight columns, seven of
 // them zero weights.
 //
-// Blocks run as clusters of 1, 2 or 4 on separate point tiles, in step: each
-// weight box is loaded once by one block of the cluster (in turn) with
-// .multicast::cluster into the same stage of every block's ring, so L2
-// serves each weight byte once per cluster.  A stage is reused only when the
-// consumers of every block of the cluster have released it: each consumer
-// warp arrives on that stage's `empty` barrier in every block.  The plan
-// takes clusters of 1 unless asked: on the H100 the blocks' waiting for each
-// other at every stage cost more than the shared L2 reads saved.
+// Each block loads every weight box of its tiles from L2 itself.  Clusters
+// whose blocks shared each box by TMA multicast were measured slower on the
+// H100: the blocks waited for each other at every stage.
 //
 // x0 boxes have a ring of their own, filled by a second producer thread: in
 // the weights' ring they would wait behind its stages, and the producer
 // could run only a stage or so ahead of the consumers.
 //
 // The host plan (ops/fused_mlp.py plan_wgmma) fixes the tile rows, the
-// cluster, the columns of each pass and the shared-memory layout: the
+// columns of each pass and the shared-memory layout: the
 // activations at offset 0, then the x0 ring, then the weights' ring, each
 // region 1024-byte aligned.  This file checks the plan and builds the
 // tensor maps.
@@ -111,7 +106,7 @@ struct WgParams {
   int P[MAX_LAYERS];              // passes over the layer's columns
   int G[MAX_LAYERS];              // passes whose accumulators are held at once
   int n_layers, N, C0, ldx, sigmoid;
-  int bm, cluster;
+  int bm;
   int stages, stage_bytes, ring_off;   // the weight ring
   int xstages, xring_off;              // the x0 ring (stages of bm x 64)
   int smem_bytes;
@@ -345,18 +340,6 @@ struct Maps {
   CUtensorMap w[MAX_LAYERS];
 };
 
-// Hands weight stage s back: one arrival from each consumer warp on the
-// stage's `empty` barrier in every block of the cluster, lane r signalling
-// the block of rank r.
-__device__ __forceinline__ void release_w(uint64_t* empty_bar, int s, int cs,
-                                          int lane) {
-  if (cs == 1) {
-    if (lane == 0) mbar_arrive(&empty_bar[s]);
-  } else if (lane < cs) {
-    mbar_arrive_cluster(&empty_bar[s], lane);
-  }
-}
-
 // The next item of a ring: item i fills slot i % stages, in phase
 // (i / stages) & 1, counted without division.
 struct Cursor {
@@ -369,8 +352,8 @@ struct Cursor {
   }
 };
 
-// The block's two rings: weight stages (filled for the whole cluster) and
-// x0 stages (this block's own rows), each with its `full` / `empty`
+// The block's two rings: weight stages and x0 stages, each with its
+// `full` / `empty`
 // barriers and the cursor of the next item.
 struct Rings {
   uint32_t w, x;                 // shared addresses of stage 0
@@ -389,7 +372,7 @@ __device__ __forceinline__ void consume_layer(
   constexpr int CP = 2 / (BM / 64);
   constexpr int GM = 256 / CN < 4 ? 256 / CN : 4;
   constexpr int NA = CN / 2;
-  const int S = p.stages, SX = p.xstages, CS = p.cluster;
+  const int S = p.stages, SX = p.xstages;
   const int KT1 = p.KT1[l], KT = KT1 + p.KT2[l], P = p.P[l], G = p.G[l];
   const int M = p.M[l];
   const bool last = l == p.n_layers - 1;
@@ -414,7 +397,7 @@ __device__ __forceinline__ void consume_layer(
     // warpgroup still holds.
     int rel_w = -1, rel_x = -1;     // slots to hand back, or -1
     auto retire = [&]() {
-      if (rel_w >= 0) release_w(r.w_empty, rel_w, CS, lane);
+      if (rel_w >= 0 && lane == 0) mbar_arrive(&r.w_empty[rel_w]);
       if (rel_x >= 0 && lane == 0) mbar_arrive(&r.x_empty[rel_x]);
       rel_w = rel_x = -1;
     };
@@ -536,15 +519,13 @@ __global__ void __launch_bounds__(NT, 1) chain_kernel(
   unsigned char* a_ptr = smem_raw + (a_base - raw);
   Rings r = {a_base + p.ring_off, a_base + p.xring_off, w_full, w_empty,
              x_full, x_empty, Cursor(), Cursor()};
-  const int S = p.stages, SX = p.xstages, CS = p.cluster;
-  const int rank = (int)cluster_rank();
+  const int S = p.stages, SX = p.xstages;
   const int T = (p.N + BM - 1) / BM;           // point tiles
-  const int ci = blockIdx.x / CS, ncl = gridDim.x / CS;
 
   if (t == 0) {
     for (int s = 0; s < S; ++s) {
-      mbar_init(&w_full[s], 1);        // this block's weight producer + bytes
-      mbar_init(&w_empty[s], 8 * CS);  // every consumer warp of the cluster
+      mbar_init(&w_full[s], 1);        // the weight producer + bytes
+      mbar_init(&w_empty[s], 8);       // every consumer warp
     }
     for (int s = 0; s < SX; ++s) {
       mbar_init(&x_full[s], 1);        // this block's x0 producer + bytes
@@ -552,11 +533,9 @@ __global__ void __launch_bounds__(NT, 1) chain_kernel(
     }
     mbar_init_fence();
   }
-  cluster_sync();
+  __syncthreads();
 
-  // The cluster's blocks take tiles (ci + i * ncl) * CS + rank in step: a
-  // block whose tile lies past N runs on zero rows and stores nothing, so
-  // that every block walks the same sequence of weight stages.
+  // The blocks take tiles blockIdx.x, blockIdx.x + gridDim.x, ...
   if (t < 128) {
     // ----------------------------------------------------------- producers
     // thread 0 fills the weight ring, thread 32 the x0 ring; each walks the
@@ -564,10 +543,8 @@ __global__ void __launch_bounds__(NT, 1) chain_kernel(
     setmaxnreg_dec<40>();
     if (t == 0 || t == 32) {
       const bool wp = t == 0;
-      int iw = 0;                   // weight items issued: the loader is
-                                    // block iw % CS of the cluster
-      for (int tg = ci; tg * CS < T; tg += ncl) {
-        const int row0 = (tg * CS + rank) * BM;
+      for (int tg = blockIdx.x; tg < T; tg += gridDim.x) {
+        const int row0 = tg * BM;
         for (int l = 0; l < p.n_layers; ++l) {
           const int KT1 = p.KT1[l], KT = KT1 + p.KT2[l], P = p.P[l];
           const int G = p.G[l], SC = CP * p.CN[l];
@@ -586,18 +563,12 @@ __global__ void __launch_bounds__(NT, 1) chain_kernel(
                 }
                 continue;
               }
-              for (int q = 0; q < np; ++q, r.cw.next(S), ++iw) {
+              for (int q = 0; q < np; ++q, r.cw.next(S)) {
                 const int s = r.cw.slot;
                 mbar_wait(&w_empty[s], r.cw.phase ^ 1);
                 mbar_arrive_expect_tx(&w_full[s], SC * LINE_BYTES);
-                const uint32_t dst = r.w + s * p.stage_bytes;
-                if (CS == 1)
-                  tma_load_2d(dst, &maps.w[l], k * TILE_K, (g0 + q) * SC,
-                              &w_full[s]);
-                else if (iw % CS == rank)
-                  tma_load_2d_multicast(dst, &maps.w[l], k * TILE_K,
-                                        (g0 + q) * SC, &w_full[s],
-                                        (uint16_t)((1u << CS) - 1u));
+                tma_load_2d(r.w + s * p.stage_bytes, &maps.w[l], k * TILE_K,
+                            (g0 + q) * SC, &w_full[s]);
               }
             }
           }
@@ -611,8 +582,8 @@ __global__ void __launch_bounds__(NT, 1) chain_kernel(
     const int cw = (t >> 7) - 1;
     const int rg = cw % RW, cp = cw / RW;
     const int warp = (t & 127) >> 5, lane = t & 31;
-    for (int tg = ci; tg * CS < T; tg += ncl) {
-      const int row0 = (tg * CS + rank) * BM;
+    for (int tg = blockIdx.x; tg < T; tg += gridDim.x) {
+      const int row0 = tg * BM;
       for (int l = 0; l < p.n_layers; ++l) {
 #define FM_LAYER(cn) \
   consume_layer<BM, cn>(p, l, row0, r, a_base, a_ptr, rg, cp, warp, lane)
@@ -627,8 +598,6 @@ __global__ void __launch_bounds__(NT, 1) chain_kernel(
       }
     }
   }
-  __syncwarp();
-  cluster_sync();   // no block leaves while its peers may still reach it
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime (the build
@@ -674,9 +643,7 @@ bool make_map(CUtensorMap* m, const void* base, int cols, int rows, int ld,
 bool plan_ok(const WgParams& p) {
   const int cp = 2 / (p.bm / 64);
   const int x_bytes = p.bm * LINE_BYTES;
-  if ((p.bm != 64 && p.bm != 128) ||
-      (p.cluster != 1 && p.cluster != 2 && p.cluster != 4) ||
-      p.stages < 2 || p.stages > MAX_STAGES || p.xstages < 2 ||
+  if ((p.bm != 64 && p.bm != 128) || p.stages < 2 || p.stages > MAX_STAGES || p.xstages < 2 ||
       p.xstages > MAX_STAGES || p.n_layers < 1 ||
       p.n_layers > MAX_LAYERS || p.N < 1 || p.C0 < 1 || p.ldx < p.C0 ||
       (p.ldx * 2) % 16 != 0 || reinterpret_cast<uintptr_t>(p.x) % 16 != 0 ||
@@ -727,37 +694,21 @@ int launch(const WgParams& p, cudaStream_t s) {
       chain_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       p.smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)p.cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = (size_t)p.smem_bytes;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  // as many clusters as fit on the card at once (one block an SM), fewer
-  // when there are fewer tiles
-  cfg.gridDim = dim3((unsigned)(p.cluster * (sm_count() / p.cluster)));
-  // asked once per (tile rows, cluster, shared memory)
-  static int known[3][3] = {};
-  int* slot = known[p.cluster >> 1];
-  int max_clusters = slot[1];
-  if (slot[0] != p.smem_bytes) {
-    e = cudaOccupancyMaxActiveClusters(&max_clusters, chain_kernel<BM>, &cfg);
+  // as many blocks as fit on the card at once (one an SM), fewer when there
+  // are fewer tiles; asked once per (tile rows, shared memory)
+  static int known[2] = {};     // shared memory asked for, blocks that fit
+  if (known[0] != p.smem_bytes) {
+    int per_sm = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chain_kernel<BM>,
+                                                      NT, p.smem_bytes);
     if (e != cudaSuccess) return (int)e;
-    slot[0] = p.smem_bytes;
-    slot[1] = max_clusters;
+    known[0] = p.smem_bytes;
+    known[1] = per_sm * sm_count();
   }
-  if (max_clusters < 1) return -5;
+  if (known[1] < 1) return -5;
   const int tiles = (p.N + BM - 1) / BM;
-  const int need = (tiles + p.cluster - 1) / p.cluster;
-  cfg.gridDim =
-      dim3((unsigned)(p.cluster * (need < max_clusters ? need : max_clusters)));
-  e = cudaLaunchKernelEx(&cfg, chain_kernel<BM>, p, maps);
-  if (e != cudaSuccess) return (int)e;
+  const int grid = tiles < known[1] ? tiles : known[1];
+  chain_kernel<BM><<<grid, NT, p.smem_bytes, s>>>(p, maps);
   return (int)cudaGetLastError();
 }
 
@@ -807,7 +758,7 @@ int fm_forward(const MlpParams* params, int block, int* block_used,
 }
 
 // bf16 chain on the plan in *params.  -3: the plan breaks an invariant;
-// -4: a tensor map could not be made; -5: no cluster fits on the card.
+// -4: a tensor map could not be made; -5: no block fits on the card.
 int fm_wg_forward(const WgParams* params, void* stream) {
   const WgParams& p = *params;
   if (!wg::plan_ok(p)) return -3;

@@ -1,10 +1,9 @@
 // Device helpers for Hopper (sm_90a) shared by the port's kernels: the
 // 128-byte swizzle, TMA box loads reported to a shared-memory barrier
-// (mbarrier), also multicast to the blocks of a cluster, barriers within a
-// block and across a cluster, register rebalancing between warpgroups,
-// ldmatrix, and the warpgroup matrix multiply (wgmma) with B read from
-// shared memory through a descriptor and A from registers or, likewise,
-// from shared memory.
+// (mbarrier), named barriers within a block, register rebalancing between
+// warpgroups, ldmatrix, and the warpgroup matrix multiply (wgmma) with B
+// read from shared memory through a descriptor and A from registers or,
+// likewise, from shared memory.
 //
 // Conventions.  An operand tile in shared memory is K-major: one row per
 // output row (A) or output column (B), 64 bf16 = 128 bytes of K per row, so
@@ -376,58 +375,12 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
       : "memory");
 }
 
-// The same box delivered to the same shared-memory offset of every block of
-// the cluster named in `mask` (bit r: the block of rank r); each copy's bytes
-// are reported to the barrier at the same offset in its own block.
-__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst,
-                                                      const void* tmap, int c0,
-                                                      int c1, uint64_t* bar,
-                                                      uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "h"(mask)
-      : "memory");
-}
-
 // Orders this thread's earlier writes to shared memory (generic proxy)
 // before later reads of the same bytes by wgmma or TMA (async proxy).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// ------------------------------------------------------------- clusters
-// Rank of this block in its cluster.
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// Every thread of every block of the cluster arrives and waits: orders the
-// barrier inits before any remote use, and keeps a block alive while its
-// peers may still write to it.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
-// One arrival on the barrier at the same offset as `bar` in the block of
-// rank `cta` of this cluster (this block's own included).
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
-                                                    uint32_t cta) {
-  asm volatile(
-      "{\n"
-      ".reg .b32 ra;\n"
-      "mapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(cta)
-      : "memory");
-}
 
 // Wait for the phase of the given parity to complete.  A wait of more than
 // a few seconds is a lost arrival: trap, so that a fault ends the kernel

@@ -8,8 +8,9 @@ dict ``Reconstructor`` takes.  RGB and depth are concatenated to ``[H, W,
 6]``.  ``calib = diag(1, -1, 1, 1)`` (y flip); ``calib_world`` is the rect's
 NDC transform.
 
-Images are decoded by ``utils/png.py``: PNG only.  A ``.jpg`` / ``.jpeg``
-subject is listed (so a request can name it) and raises when it is read.
+Images are decoded by the port itself: ``utils/png.py`` (PNG) and
+``utils/jpeg.py`` (baseline JPEG), each giving what ``cv2.imread``, which
+the JAX package's reader calls, gives.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Any
 
 import numpy as np
 
-from ..utils.png import read_rgb8
+from ..utils import jpeg, png
 from .preprocessing import (addrect, normalize_image, rect_to_ndc_transform,
                             resize_image)
 
@@ -27,12 +28,9 @@ _IMG_EXT = (".jpg", ".jpeg", ".png")
 
 
 def _read_image(path: str) -> np.ndarray:
-    if not path.lower().endswith(".png"):
-        raise ValueError(
-            f"{path}: only PNG subjects can be read (this package decodes "
-            "images itself and has no JPEG decoder); convert the image to "
-            "PNG")
-    return read_rgb8(path)
+    if path.lower().endswith((".jpg", ".jpeg")):
+        return jpeg.read_rgb8(path)
+    return png.read_rgb8(path)
 
 
 class InferenceDataset:
@@ -60,7 +58,7 @@ class InferenceDataset:
         depth_path = os.path.join(self.root, "depth", f"depth_{name}.png")
 
         im = _read_image(img_path)
-        depth = read_rgb8(depth_path) if os.path.exists(depth_path) \
+        depth = png.read_rgb8(depth_path) if os.path.exists(depth_path) \
             else np.zeros_like(im)
         h, w = im.shape[:2]
 

@@ -3,8 +3,11 @@ boundary.  Attribute names follow the flax parameter tree, including flax's
 auto-numbered ``_NormReLU_<k>`` submodules in creation order.
 
 Dtypes follow flax: a conv with a ``dtype`` casts input, kernel and bias to
-it and returns it; a conv without one computes in f32.  GroupNorm (f32
-params) computes and returns f32.
+it and returns it; a conv without one computes in f32.  GroupNorm and
+BatchNorm (f32 params) compute and return f32.  BatchNorm is inference
+only: it normalises with its running statistics, as flax ``BatchNorm``
+with ``use_running_average=True`` (the buffers ``mean`` / ``var`` are the
+flax ``batch_stats``).
 """
 
 from __future__ import annotations
@@ -63,10 +66,35 @@ class GroupNorm(nn.Module):
         return y.reshape(x.shape)
 
 
+class BatchNorm(nn.Module):
+    """flax ``BatchNorm(use_running_average=True)`` on ``[..., C]``:
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32, with the
+    running statistics."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+        self.register_buffer("mean", torch.zeros(channels, device=device))
+        self.register_buffer("var", torch.ones(channels, device=device))
+
+    def affine(self):
+        """``(mul, add)`` with ``norm(x) = x * mul + add`` (f64 math)."""
+        mul = torch.rsqrt(self.var.double() + self.eps) * self.weight.double()
+        return mul, self.bias.double() - self.mean.double() * mul
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.var + self.eps) * self.weight
+        return (x.float() - self.mean) * mul + self.bias
+
+
 def make_norm(norm: str, channels: int, device=None) -> nn.Module:
     if norm == "group":
         return GroupNorm(channels, 32, device=device)
-    raise ValueError(f"norm {norm!r} is not ported yet")
+    if norm == "batch":
+        return BatchNorm(channels, device=device)
+    raise ValueError(f"unknown norm {norm!r}")
 
 
 class _NormReLU(nn.Module):
@@ -135,19 +163,28 @@ class HourGlass(nn.Module):
 
 class HGFilter(nn.Module):
     """Stacked-hourglass pixel-aligned encoder; returns ``(outputs,
-    normx)`` with one ``[B, H', W', last_channels]`` map per stack."""
+    normx)`` with one ``[B, H', W', last_channels]`` map per stack.
+
+    down_type (after the 7x7 stride-2 stem): ``ave_pool`` ConvBlock(128) +
+    2x2 average pool; ``no_down`` ConvBlock(128); ``conv64`` ConvBlock(64) +
+    a 3x3 stride-2 conv to 128; ``conv128`` ConvBlock(128) + the same
+    conv (both convs f32, with a bias, as flax builds them)."""
 
     def __init__(self, n_stack: int, depth: int, last_channels: int,
                  in_channels: int, norm: str = "group",
                  down_type: str = "ave_pool", dtype=None, device=None):
         super().__init__()
-        if down_type not in ("ave_pool", "no_down"):
-            raise ValueError(f"down_type {down_type!r} is not ported yet")
+        if down_type not in ("ave_pool", "no_down", "conv64", "conv128"):
+            raise ValueError(f"unknown down_type {down_type!r}")
         self.n_stack, self.down_type = n_stack, down_type
         self.conv1 = Conv(in_channels, 64, 7, stride=2, padding=3,
                           dtype=dtype, device=device)
         self._NormReLU_0 = _NormReLU(norm, 64, device)
-        self.conv2 = ConvBlock(64, 128, norm, dtype, device)
+        c2 = 64 if down_type == "conv64" else 128
+        self.conv2 = ConvBlock(64, c2, norm, dtype, device)
+        if down_type in ("conv64", "conv128"):
+            self.down_conv2 = Conv(c2, 128, 3, stride=2, padding=1,
+                                   device=device)
         self.conv3 = ConvBlock(128, 128, norm, dtype, device)
         self.conv4 = ConvBlock(128, 256, norm, dtype, device)
         for i in range(n_stack):
@@ -169,6 +206,8 @@ class HGFilter(nn.Module):
         x = self.conv2(x)
         if self.down_type == "ave_pool":
             x = avg_pool2d(x, 2, 2)
+        elif self.down_type != "no_down":
+            x = self.down_conv2(x)
         normx = x
         x = self.conv4(self.conv3(x))
         previous = x

@@ -6,9 +6,16 @@ query path evaluates the same function through ``ops.fused_query`` with the
 layers packed once by ``packed()``.
 
 Rounding of a ``dtype`` (bf16) layer, as flax ``Dense(dtype=bf16)``: the
-product is rounded to bf16, then the bias is added in bf16.  GroupNorm
-(f32 params) promotes to f32; leaky runs in the dtype it is given, with
-the slope 0.01 rounded to that dtype (bf16 for a norm-free bf16 chain).
+product is rounded to bf16, then the bias is added in bf16.  GroupNorm and
+BatchNorm (f32 params) promote to f32; leaky runs in the dtype it is given,
+with the slope 0.01 rounded to that dtype (bf16 for a norm-free bf16
+chain).
+
+Batch norm is inference only (running statistics): a per-channel affine.
+``packed()`` folds it into the preceding Dense layer's weight and bias, so
+the kernels see a norm-free chain; ``forward`` applies it as flax does.
+In bf16 the folded chain rounds in other places (the folded weights, and
+leaky in bf16 where flax's runs in f32 after the norm).
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.fused_query import PackedMLP, pack_layers
-from .blocks import GroupNorm
+from .blocks import make_norm
 
 
 class PointMLP(nn.Module):
@@ -29,8 +36,8 @@ class PointMLP(nn.Module):
                  last_op: str | None = "sigmoid",
                  dtype: torch.dtype | None = None, device=None):
         super().__init__()
-        if norm not in ("group", "none"):
-            raise ValueError(f"mlp norm {norm!r} is not ported yet")
+        if norm not in ("group", "batch", "none"):
+            raise ValueError(f"unknown mlp norm {norm!r}")
         fc = list(filter_channels)
         self.filter_channels = fc
         self.n_layers = len(fc) - 1
@@ -44,9 +51,9 @@ class PointMLP(nn.Module):
             nn.init.normal_(lin.weight, 0.0, 0.02)
             nn.init.zeros_(lin.bias)
             setattr(self, f"dense{i}", lin)
-            if norm == "group" and i != self.n_layers - 1:
-                setattr(self, f"norm{i}", GroupNorm(fc[i + 1], 32,
-                                                    device=device))
+            if norm != "none" and i != self.n_layers - 1:
+                setattr(self, f"norm{i}", make_norm(norm, fc[i + 1],
+                                                    device))
         self._packed: dict = {}
         self.register_load_state_dict_post_hook(
             lambda m, _keys: m._packed.clear())
@@ -75,7 +82,7 @@ class PointMLP(nn.Module):
                 if i in self.res_layers else y
             y = self._dense(i, inp)
             if i != self.n_layers - 1:
-                if self.norm == "group":
+                if self.norm != "none":
                     y = getattr(self, f"norm{i}")(y)
                 y = self._leaky(y)
             if i == self.merge:
@@ -84,17 +91,26 @@ class PointMLP(nn.Module):
             y = torch.sigmoid(y.float())
         return y, phi
 
+    def _folded(self, i: int):
+        """Dense layer ``i`` with its batch norm folded in: ``(weight,
+        bias)`` f32, ``norm(x W^T + b) = x (mul W)^T + (b mul + add)``."""
+        lin = getattr(self, f"dense{i}")
+        if self.norm != "batch" or i == self.n_layers - 1:
+            return lin.weight, lin.bias
+        mul, add = getattr(self, f"norm{i}").affine()
+        return ((lin.weight.double() * mul[:, None]).float(),
+                (lin.bias.double() * mul + add).float())
+
     def packed(self) -> PackedMLP:
-        """Layers packed for ``fused_gather_mlp`` (cached; cleared when a
-        state dict is loaded)."""
+        """Layers packed for the kernels (cached; cleared when a state dict
+        is loaded): GroupNorm as the kernels' norm, batch norm folded into
+        the Dense before it."""
         cd = self.dtype or torch.float32
         if cd not in self._packed:
-            lin = [(getattr(self, f"dense{i}").weight,
-                    getattr(self, f"dense{i}").bias)
-                   for i in range(self.n_layers)]
+            lin = [self._folded(i) for i in range(self.n_layers)]
             nrm = [(getattr(self, f"norm{i}").weight,
                     getattr(self, f"norm{i}").bias)
-                   if hasattr(self, f"norm{i}") else None
-                   for i in range(self.n_layers)]
+                   if self.norm == "group" and hasattr(self, f"norm{i}")
+                   else None for i in range(self.n_layers)]
             self._packed[cd] = pack_layers(lin, nrm, cd, self.res_layers)
         return self._packed[cd]

@@ -102,6 +102,19 @@ class MultiResPIFu(nn.Module):
         return FineQueryOut(preds_interm[-1], preds_interm,
                             coarse.preds.reshape(S_g, B1 * B2, N, 1), mask)
 
+    def field_last(self, l_feats: FineFeatures, g_feats: CoarseFeatures,
+                   points: torch.Tensor, calib_local: torch.Tensor,
+                   calib_global: torch.Tensor) -> torch.Tensor:
+        """Fine occupancy ``[B1*B2, N, 1]`` of the last local stack, with
+        the coarse ``phi`` left differentiable: the field whose negative
+        gradient ``normal_mode='grad'`` colours with (the quantity the fd
+        taps of ``calc_normal`` sample)."""
+        B1, B2, N, _ = points.shape
+        _, z_feat, xyz = self._coarse(g_feats, points, calib_local,
+                                      calib_global)
+        return query_mlp(self.mlp, l_feats.im_feats[-1],
+                         xyz[..., :2].reshape(B1 * B2, N, 2), z_feat, -1)[0]
+
     def calc_normal(self, l_feats: FineFeatures, g_feats: CoarseFeatures,
                     points: torch.Tensor, calib_local: torch.Tensor,
                     calib_global: torch.Tensor,

@@ -1,8 +1,8 @@
 """Native (C++) host kernels, built with g++ into ``_build/`` on first use.
 
-``marching.cc`` (sparse-direct marching cubes / tetrahedra) and
-``meshio.cc`` (affine transform, u16 vertex quantisation, OBJ writer) are
-copies of the JAX package's sources.  A failed build raises: this port has
+``marching.cc`` (marching cubes / tetrahedra over dense and sparse fields)
+and ``meshio.cc`` (sparse-volume densify, affine transform, u16 vertex
+quantisation, OBJ writer) are copies of the JAX package's sources.  A failed build raises: this port has
 no NumPy fallback for them.
 """
 
@@ -60,6 +60,17 @@ def load_marching():
                     ctypes.POINTER(i64)]
         lib.mt_run_sparse3.restype = ci
         lib.mt_run_sparse3.argtypes = field3 + [i32p, i64] + out_args
+        # dense volume [X, Y, Z], threshold, case table, mc_cols, threads
+        lib.mt_run.restype = ci
+        lib.mt_run.argtypes = [ctypes.POINTER(ctypes.c_float), i64, i64, i64,
+                               cf, i8p, ci, ci] + out_args
+        # two-level field: corner_q, top_idx, K, refined, n, factor, res,
+        # pack_bits, band_scale, threshold, case table, mc_cols, threads,
+        # then the scan cells
+        lib.mt_run_sparse.restype = ci
+        lib.mt_run_sparse.argtypes = [u8p, i32p, i64, u8p, i64, ci, i64, ci,
+                                      cf, cf, i8p, ci, ci, i32p,
+                                      i64] + out_args
         lib.mt_free.argtypes = [ctypes.c_void_p]
         lib.mt3_begin.restype = ctypes.c_void_p
         lib.mt3_begin.argtypes = field3
@@ -82,6 +93,11 @@ def load_meshio():
         lib = ctypes.CDLL(_build_lib("meshio", "meshio.cc"))
         fp = ctypes.POINTER(ctypes.c_float)
         i64 = ctypes.c_int64
+        # vol, res, fill, marks, n, factor, top_idx, K, refined, threads
+        lib.densify.argtypes = [fp, i64, fp, ctypes.POINTER(ctypes.c_uint8),
+                                i64, ctypes.c_int,
+                                ctypes.POINTER(ctypes.c_int32), i64, fp,
+                                ctypes.c_int]
         lib.transform_affine.argtypes = [
             fp, i64, ctypes.POINTER(ctypes.c_double), fp, ctypes.c_int]
         lib.bbox_quantize_u16.argtypes = [

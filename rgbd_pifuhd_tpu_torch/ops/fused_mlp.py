@@ -21,9 +21,9 @@ the plain PyTorch version ``fused_point_mlp_ref``; a CUDA tensor launches
 no fallback from the kernel to the plain version.
 
 A bf16 chain runs the persistent wgmma kernel on a plan made here
-(``plan_wgmma``): the point tile (128 or 64 rows), the cluster of blocks
-that share each weight box, the columns of each layer's passes and the
-shared-memory layout (activations, then the ring of TMA stages).  An f32
+(``plan_wgmma``): the point tile (128 or 64 rows), the columns of each
+layer's passes and the shared-memory layout (activations, then the rings
+of TMA stages).  An f32
 chain runs FMA tiles whose size the library picks.
 """
 
@@ -49,11 +49,6 @@ BK = fq.BK              # K values per ring stage (64)
 SMEM_PLAN_MAX = 232448 - 1024   # dynamic shared memory a plan may take
 MAX_STAGES = 8
 TILE_ROWS = (128, 64)   # point tiles the bf16 kernel takes, in preference
-CLUSTERS = (1, 2, 4)    # blocks that share each weight box
-# Measured on the H100 (PERF.md section 6): clusters of 2 and 4 cut
-# the weights' L2 reads but were slower at both full widths (the blocks of a
-# cluster wait for each other at every weight stage).
-DEFAULT_CLUSTER = 1
 
 
 # ------------------------------------------------------- plain version
@@ -84,10 +79,9 @@ def _pow2_at_least(n: int) -> int:
 @dataclass
 class WgPlan:
     """Everything about one bf16 chain launch that the library does not
-    decide: the point tile, the cluster, each layer's passes and the
-    shared-memory layout (offsets from a 1024-byte aligned base)."""
+    decide: the point tile, each layer's passes and the shared-memory
+    layout (offsets from a 1024-byte aligned base)."""
     bm: int                 # points per tile
-    cluster: int            # blocks that share each weight box (multicast)
     cp: int                 # consumer warpgroups splitting a pass's columns
     a_bytes: int            # resident activations [bm, a_cols] bf16, at 0
     xstages: int            # x0 ring: stages of bm x 64 bf16
@@ -99,8 +93,7 @@ class WgPlan:
     layers: list            # per layer: M, KT1, KT2, CN, SC, P, G
 
 
-def plan_wgmma(mlp: PackedMLP, rows: int | None = None,
-               cluster: int | None = None) -> WgPlan:
+def plan_wgmma(mlp: PackedMLP, rows: int | None = None) -> WgPlan:
     """Plan the bf16 kernel for ``mlp``.
 
     Each layer's output columns are covered in passes of ``SC = cp * CN``
@@ -125,9 +118,6 @@ def plan_wgmma(mlp: PackedMLP, rows: int | None = None,
     leaves 3).  Raises ``ValueError`` if none fits."""
     if mlp.compute_dtype != torch.bfloat16:
         raise ValueError("plan_wgmma plans bf16 chains")
-    cluster = DEFAULT_CLUSTER if cluster is None else int(cluster)
-    if cluster not in CLUSTERS:
-        raise ValueError(f"cluster {cluster} not in {CLUSTERS}")
     if rows is not None and int(rows) not in TILE_ROWS:
         raise ValueError(f"tile rows {rows} not in {TILE_ROWS}")
     cands = TILE_ROWS if rows is None else (int(rows),)
@@ -166,7 +156,7 @@ def plan_wgmma(mlp: PackedMLP, rows: int | None = None,
             if stages < min_stages:
                 continue
             ring_off = a_bytes + xstages * x_bytes
-            return WgPlan(bm, cluster, cp, a_bytes, xstages, a_bytes, stages,
+            return WgPlan(bm, cp, a_bytes, xstages, a_bytes, stages,
                           stage_bytes, ring_off,
                           ring_off + stages * stage_bytes + 1024, layers)
     raise ValueError(f"fused_mlp: no point tile ({rows or 'any'}) of the "
@@ -198,8 +188,8 @@ class _WgParams(ctypes.Structure):
                                               "G")] + [
                     (n, ctypes.c_int) for n in (
                         "n_layers", "N", "C0", "ldx", "sigmoid", "bm",
-                        "cluster", "stages", "stage_bytes", "ring_off",
-                        "xstages", "xring_off", "smem_bytes")]
+                        "stages", "stage_bytes", "ring_off", "xstages",
+                        "xring_off", "smem_bytes")]
 
 
 def build() -> str:
@@ -250,21 +240,7 @@ def _check_args(x: torch.Tensor, mlp: PackedMLP) -> None:
             raise ValueError(f"layer {i} weights not {cd} on {x.device}")
 
 
-def _hint(block) -> tuple:
-    """``block`` -> (tile rows or None, cluster or None)."""
-    if block is None:
-        return None, None
-    if isinstance(block, (tuple, list)):
-        rows, cluster = block
-        return (int(rows) if rows else None,
-                int(cluster) if cluster else None)
-    return int(block), None
-
-
-def _launch_f32(x, mlp: PackedMLP, last_op, block) -> torch.Tensor:
-    rows, cluster = _hint(block)
-    if cluster not in (None, 1):
-        raise ValueError("the f32 kernel runs no clusters")
+def _launch_f32(x, mlp: PackedMLP, last_op, rows) -> torch.Tensor:
     N = int(x.shape[0])
     out = torch.empty((N, mlp.widths[-1]), dtype=torch.float32,
                       device=x.device)
@@ -286,7 +262,7 @@ def _launch_f32(x, mlp: PackedMLP, last_op, block) -> torch.Tensor:
             f"{[mlp.in_dim] + mlp.widths} fits shared memory")
     if rc != 0:
         raise RuntimeError(f"fused_mlp: CUDA error {rc}")
-    fused_point_mlp.last_block, fused_point_mlp.last_cluster = used.value, 1
+    fused_point_mlp.last_block = used.value
     return out
 
 
@@ -317,18 +293,17 @@ def wg_params(x, out, mlp: PackedMLP, plan: WgPlan, last_op) -> _WgParams:
     p.n_layers, p.N, p.C0, p.ldx = (len(mlp.layers), int(x.shape[0]),
                                     mlp.in_dim, int(x.shape[1]))
     p.sigmoid = int(last_op == "sigmoid")
-    for k in ("bm", "cluster", "stages", "stage_bytes", "ring_off",
-              "xstages", "xring_off", "smem_bytes"):
+    for k in ("bm", "stages", "stage_bytes", "ring_off", "xstages",
+              "xring_off", "smem_bytes"):
         setattr(p, k, getattr(plan, k))
     return p
 
 
-def _launch_wg(x, mlp: PackedMLP, last_op, block) -> torch.Tensor:
-    rows, cluster = _hint(block)
-    key = ("wg", rows, cluster)
+def _launch_wg(x, mlp: PackedMLP, last_op, rows) -> torch.Tensor:
+    key = ("wg", rows)
     plan = mlp.plans.get(key)
     if plan is None:
-        plan = mlp.plans[key] = plan_wgmma(mlp, rows, cluster)
+        plan = mlp.plans[key] = plan_wgmma(mlp, rows)
     if (x.shape[1] * 2) % 16:
         # TMA reads rows 16-byte aligned: pad x0 as gather_concat does
         xp = torch.zeros((x.shape[0], fq._r8(x.shape[1])), dtype=x.dtype,
@@ -344,7 +319,6 @@ def _launch_wg(x, mlp: PackedMLP, last_op, block) -> torch.Tensor:
         raise RuntimeError(f"fused_mlp: launch refused or failed ({rc}) for "
                            f"the plan {plan}")
     fused_point_mlp.last_block = plan.bm
-    fused_point_mlp.last_cluster = plan.cluster
     return out
 
 
@@ -361,10 +335,8 @@ def fused_point_mlp(x: torch.Tensor, layers: PackedMLP, *,
         layers: ``pack_layers`` output of a norm-free MLP.
         res_layers: layers whose input is ``concat(h, x)``.
         last_op: ``'sigmoid'`` or None.
-        block: tile hint, validated by the plan.  None: the plan's choice;
-            an int: points per tile (bf16: 128 or 64; f32: 64, 32 or 16);
-            ``(rows, cluster)``: also the blocks of a cluster (bf16: 1, 2
-            or 4), either entry None for the plan's choice.
+        block: points per tile, validated by the plan (bf16: 128 or 64;
+            f32: 64, 32 or 16), or None for the plan's choice.
     """
     if any(L.gn_scale is not None for L in layers.layers):
         raise ValueError("fused_point_mlp runs norm-free chains only; a "
@@ -377,14 +349,14 @@ def fused_point_mlp(x: torch.Tensor, layers: PackedMLP, *,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check_args(x, layers)
+    rows = None if block is None else int(block)
     if layers.compute_dtype == torch.bfloat16:
-        out = _launch_wg(x, layers, last_op, block)
+        out = _launch_wg(x, layers, last_op, rows)
     else:
-        out = _launch_f32(x, layers, last_op, block)
+        out = _launch_f32(x, layers, last_op, rows)
     fused_point_mlp.launches += 1
     return out
 
 
 fused_point_mlp.launches = 0
 fused_point_mlp.last_block = 0
-fused_point_mlp.last_cluster = 0

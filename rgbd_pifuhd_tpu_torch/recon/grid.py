@@ -1,15 +1,20 @@
-"""Three-level octree field evaluation on the device (port of the
-three-phase part of ``recon/grid.py``: stride 8 -> 4 -> 1).
+"""Occupancy-grid evaluation on the device (port of ``recon/grid.py``):
+the three-level octree (stride 8 -> 4 -> 1, the main path), the two-level
+one (stride 8 -> 1) and the dense lattice, and the host reassembly of the
+sparse results into dense volumes.
 
 Chunking follows the JAX package exactly, because GroupNorm makes each
 query call's point set part of the field's semantics:
 
-- phase 1 pads the ``(n+1)^3`` corners to a multiple of 1024 by repeating
-  the last corner (one query call);
-- phase 2 queries ``min(8192, K1)`` cells x 27 probes per call, padding
-  with the last cell;
-- phase 3 queries bands of ``min(4096, K2)`` sub-cells x 64 points,
-  padding with the last sub-cell.
+- the stride-8 corner lattice (both octrees) pads the ``(n+1)^3`` corners
+  to a multiple of 1024 by repeating the last corner (one query call);
+- three-level phase 2 queries ``min(8192, K1)`` cells x 27 probes per
+  call, padding with the last cell;
+- three-level phase 3 queries bands of ``min(4096, K2)`` sub-cells x 64
+  points, padding with the last sub-cell;
+- two-level phase 2 queries ``min(512, n^3)`` cells x 512 points per call,
+  its budget rounded down to a multiple of that chunk;
+- the dense lattice queries one x-slab of ``res^2`` points per call.
 
 Top-K ranking uses a stable descending sort, so ties keep the lower index
 first as ``lax.top_k`` does (after budget escalation, zero-activity cells
@@ -90,25 +95,34 @@ def _corner_stack(c: torch.Tensor) -> torch.Tensor:
         c[..., 1:, 1:, :-1], c[..., 1:, 1:, 1:]], dim=0)
 
 
-def _three_phase_p1(query_fn, res, factor, K1, pack_bits, band_scale,
-                    calib_inv, *query_args):
-    """Stride-8 corner lattice -> active-cell ranking."""
+def _corner_pass(query_fn, res, factor, K, calib_inv, *query_args):
+    """Stride-``factor`` corner lattice -> ``(corner values, v_min,
+    v_max, top-K cell ids, cell origins, diag)``."""
     n = res // factor
     n1 = n + 1
-    dev = calib_inv.device
-    corner_idx = torch.clamp(_lattice(n1, factor, dev), max=res - 1)
+    corner_idx = torch.clamp(_lattice(n1, factor, calib_inv.device),
+                             max=res - 1)
     n_corners = n1 ** 3
     n_pad = -(-n_corners // 1024) * 1024
     world = _idx_to_world(_pad_rows(corner_idx, n_pad), res, calib_inv)
     corner_vals = query_fn(world, *query_args)[:n_corners]
     st = _corner_stack(corner_vals.reshape(n1, n1, n1))
-    activity = (st.amax(0) - st.amin(0)).reshape(-1)
-    top_vals, top8 = _top_k(activity, K1)
+    v_min, v_max = st.amin(0), st.amax(0)
+    activity = (v_max - v_min).reshape(-1)
+    top_vals, top = _top_k(activity, K)
     diag = {"kth_activity": top_vals[-1],
             "n_active": (activity > _SKIP_THRESHOLD).sum(),
-            "budget_cells": K1}
-    cell_base = torch.stack([top8 // (n * n), (top8 // n) % n, top8 % n],
+            "budget_cells": K}
+    cell_base = torch.stack([top // (n * n), (top // n) % n, top % n],
                             dim=-1) * factor
+    return corner_vals, v_min, v_max, top, cell_base, diag
+
+
+def _three_phase_p1(query_fn, res, factor, K1, pack_bits, band_scale,
+                    calib_inv, *query_args):
+    """Stride-8 corner lattice -> active-cell ranking."""
+    corner_vals, _, _, top8, cell_base, diag = _corner_pass(
+        query_fn, res, factor, K1, calib_inv, *query_args)
     return (_quantize_band(corner_vals, band_scale, pack_bits), top8,
             cell_base, diag)
 
@@ -193,6 +207,85 @@ def eval_grid_three_phase_sparse(query_fn, resolution, calib_inv,
     return corner_q, top8, sub_q, top4, refined, {**d1, **d2}
 
 
+def eval_grid_dense(query_fn, resolution, calib_inv, *query_args):
+    """Every lattice point, one x-slab of ``res^2`` points per query call:
+    ``[res, res, res]`` occupancy on the device."""
+    res = resolution
+    dev = calib_inv.device
+    lin = torch.arange(res * res, device=dev)
+    yz = torch.stack([lin // res, lin % res], dim=-1)
+    vol = torch.empty((res, res * res), dtype=torch.float32, device=dev)
+    for i in range(res):
+        idx = torch.cat([torch.full_like(lin[:, None], i), yz], dim=-1)
+        vol[i] = query_fn(_idx_to_world(idx, res, calib_inv), *query_args)
+    return vol.reshape(res, res, res)
+
+
+def _two_phase_budget(res: int, factor: int, budget_cells: int,
+                      cells_per_chunk: int):
+    """``(cells per query call, budget)``: the budget clamped to
+    ``[chunk, n^3]`` and rounded down to a multiple of the chunk."""
+    n3 = (res // factor) ** 3
+    chunk = min(cells_per_chunk, n3)
+    budget = min(max(budget_cells, chunk), n3)
+    return chunk, (budget // chunk) * chunk
+
+
+def _two_phase_refine(query_fn, res, factor, cell_base, chunk, calib_inv,
+                      *query_args):
+    """Dense ``factor^3`` blocks of the refined cells, ``chunk`` cells per
+    query call: yields ``(points [chunk * f^3, 3], occupancy)``."""
+    offsets = _lattice(factor, 1, cell_base.device)
+    for i in range(cell_base.shape[0] // chunk):
+        bases = cell_base[i * chunk:(i + 1) * chunk]
+        pts = (bases[:, None, :] + offsets[None]).reshape(-1, 3)
+        yield pts, query_fn(_idx_to_world(pts, res, calib_inv), *query_args)
+
+
+def eval_grid_two_phase(query_fn, resolution, calib_inv, *query_args,
+                        factor: int = 8, budget_cells: int = 49152,
+                        cells_per_chunk: int = 512):
+    """Two-level evaluation into a dense volume on the device: cells hold
+    ``0.5 * (min + max)`` of their corners, the top ``budget_cells`` by
+    corner disagreement are evaluated densely.  Returns ``(volume
+    [res, res, res], diag)``."""
+    res = resolution
+    n = res // factor
+    chunk, budget = _two_phase_budget(res, factor, budget_cells,
+                                      cells_per_chunk)
+    _, v_min, v_max, _, cell_base, diag = _corner_pass(
+        query_fn, res, factor, budget, calib_inv, *query_args)
+    fill = 0.5 * (v_min + v_max)
+    vol = fill[:, None, :, None, :, None].expand(
+        n, factor, n, factor, n, factor).reshape(-1).clone()
+    for pts, occ in _two_phase_refine(query_fn, res, factor, cell_base,
+                                      chunk, calib_inv, *query_args):
+        vol[(pts[:, 0] * res + pts[:, 1]) * res + pts[:, 2]] = occ
+    return vol.reshape(res, res, res), diag
+
+
+def eval_grid_two_phase_sparse(query_fn, resolution, calib_inv, *query_args,
+                               factor: int = 8, budget_cells: int = 12288,
+                               cells_per_chunk: int = 512,
+                               pack_bits: int = 4, band_scale: float = 4.0):
+    """The two-level evaluation as a sparse result on the device:
+    ``(corner_q [(n+1)^3] uint8, top_idx [K] int32, refined [K, f^3 / 2]
+    uint8 (two 4-bit voxels a byte), diag)``, values band-quantised around
+    the 0.5 level (``_quantize_band``)."""
+    res = resolution
+    chunk, budget = _two_phase_budget(res, factor, budget_cells,
+                                      cells_per_chunk)
+    corner_vals, _, _, top_idx, cell_base, diag = _corner_pass(
+        query_fn, res, factor, budget, calib_inv, *query_args)
+    refined = []
+    for _, occ in _two_phase_refine(query_fn, res, factor, cell_base, chunk,
+                                    calib_inv, *query_args):
+        q = _quantize_band(occ.reshape(chunk, -1), band_scale, pack_bits)
+        refined.append(_pack4(q) if pack_bits == 4 else q)
+    return (_quantize_band(corner_vals, band_scale, pack_bits),
+            top_idx.to(torch.int32), torch.cat(refined), diag)
+
+
 def pack_sparse3_head(corner_q, top8, sub_q, top4, diag):
     """Scan inputs + escalation diagnostics as three device arrays:
     uint8 (corner ++ sub lattice), int32 (top8 ++ top4), f32 [6] diag."""
@@ -252,3 +345,111 @@ def sparse_scan_cells(corner_vals, top_idx, resolution: int,
     marks.reshape(-1)[np.asarray(top_idx)] = True
     origins = np.argwhere(marks).astype(np.int32) * factor
     return origins, marks
+
+
+def _unquantize(q, pack_bits: int = 4, band_scale: float = 4.0):
+    levels = (1 << pack_bits) - 1
+    return ((np.asarray(q).astype(np.float32) / levels - 0.5) / band_scale
+            + 0.5)
+
+
+def _unpack4(refined: np.ndarray) -> np.ndarray:
+    """``[K, w]`` bytes -> ``[K, 2w]`` 4-bit values, low nibble first."""
+    refined = np.asarray(refined)
+    return np.stack([refined & 0x0F, refined >> 4],
+                    axis=-1).reshape(refined.shape[0], -1)
+
+
+def _fill8(corner_q, n: int, pack_bits: int, band_scale: float):
+    """Per-cell fill ``0.5 * (min + max)`` of the dequantised corners."""
+    c = _unquantize(corner_q, pack_bits, band_scale).reshape(
+        n + 1, n + 1, n + 1)
+    st = np.stack([c[dx:n + dx, dy:n + dy, dz:n + dz]
+                   for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)])
+    return (0.5 * (st.min(axis=0) + st.max(axis=0))).astype(np.float32)
+
+
+def densify_sparse3_volume(corner_q, top8_idx, sub_q, top4_idx, refined,
+                           resolution: int, factor: int = 8,
+                           pack_bits: int = 4,
+                           band_scale: float = 4.0) -> np.ndarray:
+    """Host reassembly of the three-level result into ``[res, res, res]``
+    (a test oracle: the marcher reads the sparse arrays directly).  Fill
+    rule at every level: ``0.5 * (min + max)`` of the corners."""
+    res = resolution
+    n = res // factor
+    half = factor // 2
+    fill8 = _fill8(corner_q, n, pack_bits, band_scale)
+    vol = np.broadcast_to(fill8[:, None, :, None, :, None],
+                          (n, factor, n, factor, n, factor)).reshape(
+        res, res, res).copy()
+    top8_idx = np.asarray(top8_idx)
+    sub = _unquantize(sub_q, pack_bits, band_scale).reshape(-1, 3, 3, 3)
+    st = np.stack([sub[:, dx:2 + dx, dy:2 + dy, dz:2 + dz]
+                   for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)])
+    fill4 = (0.5 * (st.min(axis=0) + st.max(axis=0))).reshape(-1, 8)
+    cbx, cby, cbz = top8_idx // (n * n), (top8_idx // n) % n, top8_idx % n
+    v8 = vol.reshape(n, 2, half, n, 2, half, n, 2, half)
+    for s in range(8):
+        sx, sy, sz = (s >> 2) & 1, (s >> 1) & 1, s & 1
+        v8[cbx, sx, :, cby, sy, :, cbz, sz, :] = \
+            fill4[:, s][:, None, None, None]
+    top4_idx = np.asarray(top4_idx)
+    refined = np.asarray(refined)
+    if pack_bits == 4:
+        refined = _unpack4(refined)
+    blocks = _unquantize(refined, pack_bits, band_scale).reshape(
+        -1, half, half, half)
+    k1, loc = top4_idx // 8, top4_idx % 8
+    v8[cbx[k1], (loc >> 2) & 1, :, cby[k1], (loc >> 1) & 1, :,
+       cbz[k1], loc & 1, :] = blocks
+    return vol
+
+
+def densify_sparse_volume(corner_vals, top_idx, refined, resolution: int,
+                          factor: int = 8, pack_bits: int = 4,
+                          band_scale: float = 4.0,
+                          scan_marks: np.ndarray | None = None,
+                          out: np.ndarray | None = None) -> np.ndarray:
+    """Host reassembly of the two-level result into ``[res, res, res]`` f32
+    by the native ``densify`` (``native/meshio.cc``).  With ``scan_marks``
+    (``sparse_scan_cells``) only the marked cells and their 26 neighbours
+    are written, which is all the masked marcher reads; the other voxels
+    are left zero.  ``out``: a buffer to reuse across subjects."""
+    import ctypes
+
+    from ..native import load_meshio
+
+    res = resolution
+    n = res // factor
+    fill = _fill8(corner_vals, n, pack_bits, band_scale)
+    if scan_marks is None:
+        dil = np.ones((n, n, n), dtype=bool)
+    else:
+        dil = scan_marks.copy()
+        for ax in range(3):
+            grown = dil.copy()
+            lo = [slice(None)] * 3
+            hi = [slice(None)] * 3
+            lo[ax] = slice(0, n - 1)
+            hi[ax] = slice(1, n)
+            grown[tuple(lo)] |= dil[tuple(hi)]
+            grown[tuple(hi)] |= dil[tuple(lo)]
+            dil = grown
+    refined = np.asarray(refined)
+    if pack_bits == 4:
+        refined = _unpack4(refined)
+    blocks = np.ascontiguousarray(_unquantize(refined, pack_bits,
+                                              band_scale))
+    vol = out if out is not None else np.empty((res, res, res), np.float32)
+    top = np.ascontiguousarray(np.asarray(top_idx), dtype=np.int32)
+    marks = np.ascontiguousarray(dil.astype(np.uint8))
+    fp = ctypes.POINTER(ctypes.c_float)
+    load_meshio().densify(
+        vol.ctypes.data_as(fp), ctypes.c_int64(res),
+        np.ascontiguousarray(fill).ctypes.data_as(fp),
+        marks.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.c_int64(n), ctypes.c_int(factor),
+        top.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.c_int64(len(top)), blocks.ctypes.data_as(fp), 0)
+    return vol

@@ -1,11 +1,14 @@
-"""Isosurface extraction over the three-phase sparse field (port of
-``recon/marching.py``).
+"""Isosurface extraction (port of ``recon/marching.py``) over the
+three-level sparse field (the main path), the two-level sparse field and a
+dense volume.
 
 The case tables are DERIVED at import time exactly as in the JAX package
 (marching tetrahedra: 6 tets per cube; marching cubes: a watertight
 per-face disambiguation rule), then handed to the native kernel
-(``native/marching.cc``), which does the marching.  This slice has no NumPy
-marching: without the native library the loader raises.
+(``native/marching.cc``), which does the marching.  The port has no NumPy
+marching: without the native library the loader raises.  The kernel's
+threads emit vertices in an order that changes from run to run: compare
+meshes as vertex and triangle sets.
 """
 
 from __future__ import annotations
@@ -341,6 +344,80 @@ def _field_args(keep, resolution, factor, pack_bits, band_scale, threshold,
             ctypes.c_int(mc_cols), 0]
 
 
+def _take_mesh(lib, rc: int, what: str, vp, nv, fp, nf):
+    """Copy the kernel's output arrays and free them."""
+    if rc != 0:
+        raise RuntimeError(f"{what} failed (rc={rc})")
+    verts = np.ctypeslib.as_array(vp, shape=(nv.value, 3)).copy() \
+        if nv.value else np.zeros((0, 3), np.float32)
+    faces = np.ctypeslib.as_array(fp, shape=(nf.value, 3)).copy() \
+        if nf.value else np.zeros((0, 3), np.int32)
+    lib.mt_free(vp)
+    lib.mt_free(fp)
+    return verts, faces
+
+
+def _out_args():
+    import ctypes
+
+    return (ctypes.POINTER(ctypes.c_float)(), ctypes.c_int64(),
+            ctypes.POINTER(ctypes.c_int32)(), ctypes.c_int64())
+
+
+def marching_tetrahedra(volume: np.ndarray, threshold: float = 0.5,
+                        algorithm: str = "mt"):
+    """Surface of a dense ``[X, Y, Z]`` field at ``threshold``: index-space
+    ``verts [V, 3]`` f32 and ``faces [F, 3]`` int32 (native ``mt_run``)."""
+    import ctypes
+    from ..native import load_marching
+
+    lib = load_marching()
+    vol = np.ascontiguousarray(volume, dtype=np.float32)
+    table, mc_cols = _packed_table(algorithm)
+    vp, nv, fp, nf = _out_args()
+    rc = lib.mt_run(
+        vol.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        *[ctypes.c_int64(d) for d in vol.shape], ctypes.c_float(threshold),
+        table.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        ctypes.c_int(mc_cols), 0, ctypes.byref(vp), ctypes.byref(nv),
+        ctypes.byref(fp), ctypes.byref(nf))
+    return _take_mesh(lib, rc, "mt_run", vp, nv, fp, nf)
+
+
+def marching_tetrahedra_sparse(corner_q, top_idx, refined, cell_origins,
+                               resolution: int, factor: int = 8,
+                               pack_bits: int = 4, band_scale: float = 4.0,
+                               threshold: float = 0.5,
+                               algorithm: str = "mt"):
+    """Surface of the two-level sparse result read directly (native
+    ``mt_run_sparse``): refined cells through their dequantised blocks,
+    the others as their corners' fill; ``cell_origins`` from
+    ``sparse_scan_cells``."""
+    import ctypes
+    from ..native import load_marching
+
+    lib = load_marching()
+    corner_q = np.ascontiguousarray(corner_q, dtype=np.uint8).reshape(-1)
+    top_idx = np.ascontiguousarray(top_idx, dtype=np.int32).reshape(-1)
+    refined = np.ascontiguousarray(refined, dtype=np.uint8)
+    cells = np.ascontiguousarray(cell_origins, dtype=np.int32)
+    table, mc_cols = _packed_table(algorithm)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    vp, nv, fp, nf = _out_args()
+    rc = lib.mt_run_sparse(
+        corner_q.ctypes.data_as(u8p), top_idx.ctypes.data_as(i32p),
+        ctypes.c_int64(len(top_idx)), refined.ctypes.data_as(u8p),
+        ctypes.c_int64(resolution // factor), ctypes.c_int(factor),
+        ctypes.c_int64(resolution), ctypes.c_int(pack_bits),
+        ctypes.c_float(band_scale), ctypes.c_float(threshold),
+        table.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        ctypes.c_int(mc_cols), 0, cells.ctypes.data_as(i32p),
+        ctypes.c_int64(len(cells)), ctypes.byref(vp), ctypes.byref(nv),
+        ctypes.byref(fp), ctypes.byref(nf))
+    return _take_mesh(lib, rc, "mt_run_sparse", vp, nv, fp, nf)
+
+
 def marching_tetrahedra_sparse3(
     corner_q, top8_idx, sub_q, top4_idx, refined, cell_origins,
     resolution: int, factor: int = 8, pack_bits: int = 4,
@@ -354,10 +431,7 @@ def marching_tetrahedra_sparse3(
     lib = load_marching()
     keep = _as_ptrs(corner_q, top8_idx, sub_q, top4_idx, refined, algorithm)
     cells = np.ascontiguousarray(cell_origins, dtype=np.int32)
-    vp = ctypes.POINTER(ctypes.c_float)()
-    fp = ctypes.POINTER(ctypes.c_int32)()
-    nv = ctypes.c_int64()
-    nf = ctypes.c_int64()
+    vp, nv, fp, nf = _out_args()
     rc = lib.mt_run_sparse3(
         *_field_args(keep, resolution, factor, pack_bits, band_scale,
                      threshold, _packed_table(algorithm)[1]),
@@ -365,15 +439,7 @@ def marching_tetrahedra_sparse3(
         ctypes.c_int64(len(cells)),
         ctypes.byref(vp), ctypes.byref(nv), ctypes.byref(fp),
         ctypes.byref(nf))
-    if rc != 0:
-        raise RuntimeError(f"mt_run_sparse3 failed (rc={rc})")
-    verts = np.ctypeslib.as_array(vp, shape=(nv.value, 3)).copy() \
-        if nv.value else np.zeros((0, 3), np.float32)
-    faces = np.ctypeslib.as_array(fp, shape=(nf.value, 3)).copy() \
-        if nf.value else np.zeros((0, 3), np.int32)
-    lib.mt_free(vp)
-    lib.mt_free(fp)
-    return verts, faces
+    return _take_mesh(lib, rc, "mt_run_sparse3", vp, nv, fp, nf)
 
 
 class IncrementalMarcher3:
@@ -409,23 +475,13 @@ class IncrementalMarcher3:
         import ctypes
 
         cells = np.ascontiguousarray(cell_origins, dtype=np.int32)
-        vp = ctypes.POINTER(ctypes.c_float)()
-        fp = ctypes.POINTER(ctypes.c_int32)()
-        nv = ctypes.c_int64()
+        vp, nv, fp, nf = _out_args()
         base = ctypes.c_int64()
-        nf = ctypes.c_int64()
         rc = self._lib.mt3_step(
             self._sess, cells.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
             ctypes.c_int64(len(cells)), ctypes.byref(vp), ctypes.byref(nv),
             ctypes.byref(base), ctypes.byref(fp), ctypes.byref(nf))
-        if rc != 0:
-            raise RuntimeError(f"mt3_step failed (rc={rc})")
-        verts = (np.ctypeslib.as_array(vp, shape=(nv.value, 3)).copy()
-                 if nv.value else np.zeros((0, 3), np.float32))
-        faces = (np.ctypeslib.as_array(fp, shape=(nf.value, 3)).copy()
-                 if nf.value else np.zeros((0, 3), np.int32))
-        self._lib.mt_free(vp)
-        self._lib.mt_free(fp)
+        verts, faces = _take_mesh(self._lib, rc, "mt3_step", vp, nv, fp, nf)
         self.total_verts = base.value + nv.value
         return verts, faces
 

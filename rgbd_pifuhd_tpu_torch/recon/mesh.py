@@ -8,6 +8,8 @@
 - ``connected_components`` / ``keep_largest_component``: vertex labels from
   face connectivity, and the component with the largest extent along an
   axis (the mesh cleaning of the image-colour path).
+- ``compute_vertex_normals``: area-weighted vertex normals (the colours of
+  ``normal_mode='mesh'``).
 """
 
 from __future__ import annotations
@@ -181,3 +183,18 @@ def keep_largest_component(verts: np.ndarray, faces: np.ndarray,
     new_faces = remap[faces[fmask]].astype(np.int32)
     new_colors = colors[keep] if colors is not None else None
     return verts[keep], new_faces, new_colors
+
+
+def compute_vertex_normals(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Area-weighted unit vertex normals ``[V, 3]`` f32: each face's cross
+    product (twice its area) summed into its three vertices in f64 with
+    ``np.bincount``, then normalised with a 1e-12 floor."""
+    v0 = verts[faces[:, 0]]
+    fn = np.cross(verts[faces[:, 1]] - v0, verts[faces[:, 2]] - v0)
+    normals = np.zeros((len(verts), 3), dtype=np.float64)
+    idx = faces.reshape(-1)
+    for c in range(3):
+        w = np.broadcast_to(fn[:, c:c + 1], (len(fn), 3)).reshape(-1)
+        normals[:, c] = np.bincount(idx, weights=w, minlength=len(verts))
+    lens = np.linalg.norm(normals, axis=1, keepdims=True)
+    return (normals / np.maximum(lens, 1e-12)).astype(np.float32)

@@ -1,17 +1,25 @@
 """Mesh reconstruction (port of ``recon/pipeline.py``): ``gen_mesh``
-(fd-normal colours), ``gen_mesh_img_color`` (image colours, optional
-largest-component cleanup and back-colour inpainting) and the two-slot
-multi-subject ``gen_mesh_many``.
+(normal-coloured), ``gen_mesh_img_color`` (image colours, optional
+largest-component cleanup and back-colour inpainting), the two-slot
+multi-subject ``gen_mesh_many``, and ``CoarseReconstructor`` (the coarse
+model alone).
 
-encode (normal nets + both hourglass encoders) -> three-level octree field
-evaluation on the device -> 4-bit sparse pull -> native marching ->
-vertex colours on the device -> OBJ (streamed) or binary PLY, and the
-montage PNG (input and predicted normal maps) beside the mesh.  With
-``opt.streamed_recon`` (default) ``gen_mesh`` dispatches phase 3 in bands
-and marches them as they land (``recon/streamed.py``).
+encode (normal nets + both hourglass encoders) -> field evaluation on the
+device (``opt.octree_levels`` 3: stride 8 -> 4 -> 1, the main path; 2:
+stride 8 -> 1; ``use_octree=False``: every lattice point) -> pull (4-bit
+sparse, or the dense f32 volume) -> native marching -> vertex colours ->
+OBJ (streamed) or binary PLY, and the montage PNG (input and predicted
+normal maps) beside the mesh.  With ``opt.streamed_recon`` (default) the
+three-level ``gen_mesh`` dispatches phase 3 in bands and marches them as
+they land (``recon/streamed.py``).
 
-Every field query — all octree phases and the four fd taps of the
-colouring — makes two kernel calls: the coarse level through
+Vertex colours of ``gen_mesh`` follow ``opt.normal_mode``: ``fd`` (four
+field taps a vertex), ``grad`` (the negative gradient of the fine field,
+one query and its backward a vertex, through ``models.coarse.query_mlp``'s
+autograd function) or ``mesh`` (geometric vertex normals on the host: no
+device colour pass, so it leaves the streamed path).
+
+Every field query makes two kernel calls: the coarse level through
 ``ops.fused_query.fused_gather_mlp`` (it owes ``phi``), the fine level
 through the same kernel, or through ``ops.fused_mlp.fused_point_mlp`` when
 its MLP is norm-free (``models.coarse.query_mlp``).  Host transfers use
@@ -38,9 +46,11 @@ from ..utils.device import resolve_device
 from ..utils.options import Options
 from ..utils.png import write_png
 from . import grid as grid_mod
-from .marching import marching_tetrahedra_sparse3
-from .mesh import (format_faces_block, keep_largest_component,
-                   save_obj_with_color, save_ply_with_color)
+from .marching import (marching_tetrahedra, marching_tetrahedra_sparse,
+                       marching_tetrahedra_sparse3)
+from .mesh import (compute_vertex_normals, format_faces_block,
+                   keep_largest_component, save_obj_with_color,
+                   save_ply_with_color)
 
 
 def _round_up(x: int, q: int) -> int:
@@ -112,8 +122,34 @@ class _ColorJob:
         return cols[0] if len(cols) == 1 else np.concatenate(cols)
 
 
+class _HostColorJob:
+    """``_ColorJob``-shaped handle for colours computed on the host (the
+    geometric normals of ``normal_mode='mesh'``): ``compute`` runs once, on
+    first use (so on ``gen_mesh_many``'s worker thread)."""
+
+    def __init__(self, compute):
+        self._fn, self._c = compute, None
+
+    def __call__(self) -> np.ndarray:
+        if self._c is None:
+            self._c = np.asarray(self._fn(), np.float32)
+        return self._c
+
+    def groups(self):
+        c = self()
+        if len(c):
+            yield 0, c
+
+
+def _normalized(nml: torch.Tensor) -> torch.Tensor:
+    norm = torch.linalg.norm(nml, dim=-1, keepdim=True)
+    return nml / torch.clamp(norm, min=1e-8)
+
+
 class Reconstructor:
-    """Two-level mesh reconstruction on one device."""
+    """Two-level mesh reconstruction on one device.  The model is frozen
+    (``requires_grad_(False)``): the ``grad`` normals differentiate the
+    field with respect to the points only."""
 
     _COLOR_CHUNK = 65536
 
@@ -123,8 +159,9 @@ class Reconstructor:
         if p.device.type != self.device.type:
             raise ValueError(f"model is on {p.device}, reconstructor on "
                              f"{self.device}")
-        self.model = model.eval()
+        self.model = model.eval().requires_grad_(False)
         self.opt = opt
+        self._vol_cache: dict[int, np.ndarray] = {}
         self.last_grid_diag: dict | None = None
         self._esc_budgets: dict[int, dict] = {}
         self.query_calls = 0            # of the newest mesh
@@ -164,6 +201,26 @@ class Reconstructor:
         l_feats = self.model.filter_local(img_local[None], g_feats,
                                           last_only=True)
         return l_feats, g_feats
+
+    def _field_last(self, pts, feats, calib):
+        """``[M, 3]`` points -> the fine field of the last stacks, ``[M]``."""
+        l_feats, g_feats = feats
+        return self.model.field_last(l_feats, g_feats, pts[None, None],
+                                     calib[None, None], calib[None])[0, :, 0]
+
+    def _calc_normal(self, verts, feats, calib):
+        """``[M, 3]`` points -> fd unit normals ``[M, 3]``."""
+        l_feats, g_feats = feats
+        return self.model.calc_normal(l_feats, g_feats, verts[None, None],
+                                      calib[None, None], calib[None])[0]
+
+    def _no_autograd(self):
+        """The context of a whole mesh: ``inference_mode``, except for
+        ``normal_mode='grad'``, whose backward cannot save inference
+        tensors (features made there), so ``no_grad``."""
+        if getattr(self.opt, "normal_mode", "fd") == "grad":
+            return torch.no_grad()
+        return torch.inference_mode()
 
     def _montage_start(self, data: dict, feats):
         """Queue the montage strip — the global image's RGB and the
@@ -228,7 +285,7 @@ class Reconstructor:
             warnings.warn(f"refinement budget overflow: {d['n_active']} "
                           f"active cells > budget {d['budget_cells']}",
                           RuntimeWarning, stacklevel=3)
-        if d["overflow_subcells"] > 0:
+        if d.get("overflow_subcells", 0) > 0:
             warnings.warn(f"sub-cell refinement budget overflow: "
                           f"{d['n_active_subcells']} active sub-cells > "
                           f"budget {d['budget_subcells']}", RuntimeWarning,
@@ -236,18 +293,20 @@ class Reconstructor:
 
     def evaluate_field(self, l_feats, g_feats, calib: torch.Tensor,
                        resolution: int):
-        """One-shot three-level evaluation (stride 8 -> 4 -> 1) with budget
-        auto-escalation; returns the host arrays ``(corner_q, top8, sub_q,
-        top4, refined, scan_cells)`` that feed the marcher."""
+        """One-shot octree evaluation with budget auto-escalation; returns
+        the host arrays that feed ``extract_mesh``: ``(corner_q, top8,
+        sub_q, top4, refined, scan_cells)`` for the three-level octree
+        (``opt.octree_levels == 3`` and ``resolution % 8 == 0``), else the
+        two-level ``(corner_q, top_idx, refined, scan_cells)``."""
         res = resolution
-        if getattr(self.opt, "octree_levels", 3) != 3 or res % 8:
-            raise ValueError("only the three-level octree (octree_levels=3, "
-                             "resolution % 8 == 0) is ported")
         calib_inv = torch.linalg.inv_ex(calib)[0]
         budget, sub_budget = self.budgets(res)
         auto = getattr(self.opt, "auto_escalate_budget", True)
+        self._phase = "field"
+        if getattr(self.opt, "octree_levels", 3) != 3 or res % 8:
+            return self._evaluate_two_level(l_feats, g_feats, calib,
+                                            calib_inv, res, budget, auto)
         while True:
-            self._phase = "field"
             corner, top8, sub_q, top4, refined, diag = \
                 grid_mod.eval_grid_three_phase_sparse(
                     self._query, res, calib_inv, l_feats, g_feats, calib,
@@ -270,6 +329,99 @@ class Reconstructor:
         cells, _ = grid_mod.sparse_scan_cells(corner_h, top8_h, res)
         return (corner_h, top8_h, sub_q_h, top4_h,
                 np.ascontiguousarray(refined.cpu().numpy()), cells)
+
+    def _evaluate_two_level(self, l_feats, g_feats, calib, calib_inv,
+                            res: int, budget: int, auto: bool):
+        """Stride 8 -> 1 (``eval_grid_two_phase_sparse``); an overflowing
+        budget is right-sized to the active count (+5%, 4096-rounded) and
+        the evaluation run again."""
+        n3 = (res // 8) ** 3
+        while True:
+            corner, top, refined, diag = grid_mod.eval_grid_two_phase_sparse(
+                self._query, res, calib_inv, l_feats, g_feats, calib,
+                factor=8, budget_cells=budget)
+            d = self._diag_host(diag)
+            if not (auto and d["overflow_cells"] > 0 and budget < n3):
+                break
+            budget = min(_round_up(int(d["n_active"] * 1.05), 4096), n3)
+            print(f"[recon] escalating refinement budget: cells "
+                  f"{d['budget_cells']}->{budget} (active: "
+                  f"{d['n_active']})")
+            self._esc_budgets[res]["cells"] = budget
+        self._check_budget(d)
+        corner, top = corner.cpu().numpy(), top.cpu().numpy()
+        cells, _ = grid_mod.sparse_scan_cells(corner, top, res)
+        return corner, top, np.ascontiguousarray(refined.cpu().numpy()), \
+            cells
+
+    @staticmethod
+    def extract_mesh(field, resolution: int, thresh: float = 0.5,
+                     algorithm: str = "mt"):
+        """Host marching of ``evaluate_field``'s arrays, by their arity (6:
+        three-level, 4: two-level): index-space verts and faces."""
+        if len(field) == 6:
+            return marching_tetrahedra_sparse3(*field, resolution,
+                                               threshold=thresh,
+                                               algorithm=algorithm)
+        return marching_tetrahedra_sparse(*field, resolution,
+                                          threshold=thresh,
+                                          algorithm=algorithm)
+
+    def occupancy_volume(self, l_feats, g_feats, calib: torch.Tensor,
+                         resolution: int, use_octree: bool = True,
+                         budget_cells: int | None = None,
+                         sparse_transfer: bool = True):
+        """The ``[res, res, res]`` occupancy volume on the host and the
+        scan cells (or None).  ``use_octree``: the two-level evaluation,
+        pulled sparse and densified on the host (a buffer reused per
+        resolution: consume it before the next call), or densified on the
+        device (``sparse_transfer=False``); else every lattice point
+        (``eval_grid_dense``).  The dense pull lands in a pinned buffer;
+        host seconds go to ``field`` (until the device is done) and
+        ``pull``."""
+        res = resolution
+        calib_inv = torch.linalg.inv_ex(calib)[0]
+        self._phase = "field"
+        if use_octree:
+            budget = budget_cells or min(
+                getattr(self.opt, "num_refine_cells", 12288),
+                (res // 8) ** 3)
+            if sparse_transfer:
+                corner, top, refined, diag = \
+                    grid_mod.eval_grid_two_phase_sparse(
+                        self._query, res, calib_inv, l_feats, g_feats, calib,
+                        factor=8, budget_cells=budget)
+                self._check_budget(self._diag_host(diag))
+                corner, top = corner.cpu().numpy(), top.cpu().numpy()
+                cells, marks = grid_mod.sparse_scan_cells(corner, top, res)
+                if res not in self._vol_cache:
+                    self._vol_cache[res] = np.empty((res,) * 3, np.float32)
+                vol = grid_mod.densify_sparse_volume(
+                    corner, top, refined.cpu().numpy(), res, scan_marks=marks,
+                    out=self._vol_cache[res])
+                return vol, cells
+            vol, diag = grid_mod.eval_grid_two_phase(
+                self._query, res, calib_inv, l_feats, g_feats, calib,
+                factor=8, budget_cells=budget)
+            self._check_budget(self._diag_host(diag))
+        else:
+            with self.timed("field"):
+                vol = grid_mod.eval_grid_dense(self._query, res, calib_inv,
+                                               l_feats, g_feats, calib)
+                _Landed(vol.device).wait()
+            self.last_grid_diag = None
+        with self.timed("pull"):
+            host, landed = _to_host(vol)
+            landed.wait()
+        return host.numpy(), None
+
+    @staticmethod
+    def _diag_host(diag) -> dict:
+        d = {"kth_activity": float(diag["kth_activity"]),
+             "n_active": int(diag["n_active"]),
+             "budget_cells": int(diag["budget_cells"])}
+        d["overflow_cells"] = max(0, d["n_active"] - d["budget_cells"])
+        return d
 
     # ------------------------------------------------------------- world
     @staticmethod
@@ -323,12 +475,23 @@ class Reconstructor:
             host = host.pin_memory()
         return host.to(self.device, non_blocking=True)
 
+    def _grad_normals(self, verts, feats, calib):
+        """Unit negative gradient of the field at ``verts [M, 3]``: one
+        query call over the chunk and its backward (GroupNorm pools over
+        the chunk, as in the JAX package's ``jax.grad``)."""
+        with torch.inference_mode(False), torch.enable_grad():
+            pts = verts.clone().requires_grad_()
+            (g,) = torch.autograd.grad(
+                self._field_last(pts, feats, calib).sum(), pts)
+        return _normalized(-g)
+
     def _normals_dispatch(self, vq: np.ndarray, lo, scale, feats, calib):
-        """Queue fd-normal colours of u16-quantised verts ``vq [k * 65536,
-        3]`` (one query call per 65536-vertex chunk, 4 taps each); returns
+        """Queue normal colours of u16-quantised verts ``vq [k * 65536,
+        3]``, one 65536-vertex chunk at a time: fd (one query call of 4
+        taps a vertex) or grad (one query call and its backward); returns
         the ``_ColorJob`` part."""
         chunk = self._COLOR_CHUNK
-        l_feats, g_feats = feats
+        grad = getattr(self.opt, "normal_mode", "fd") == "grad"
         vq_d = self._upload(vq.view(np.int16)).to(torch.int32) & 0xFFFF
         lo_d, scale_d = self._upload(lo), self._upload(scale)
         cols = []
@@ -336,11 +499,10 @@ class Reconstructor:
             verts = _dequantize_verts(vq_d[j * chunk:(j + 1) * chunk],
                                       lo_d, scale_d)
             self._phase = "color"
-            self._count(4 * chunk)
-            nml = self.model.calc_normal(l_feats, g_feats,
-                                         verts[None, None],
-                                         calib[None, None], calib[None])
-            cols.append(_quantize_colors(nml[0]))
+            self._count(chunk if grad else 4 * chunk)
+            nml = (self._grad_normals(verts, feats, calib) if grad
+                   else self._calc_normal(verts, feats, calib))
+            cols.append(_quantize_colors(nml))
         return _to_host(torch.cat(cols))
 
     def dispatch_block(self, block: np.ndarray, k: int, feats, calib):
@@ -369,7 +531,7 @@ class Reconstructor:
 
     def color_by_normals_start(self, verts: np.ndarray, feats,
                                calib: torch.Tensor) -> _ColorJob:
-        """Dispatch fd-normal colouring of all verts."""
+        """Dispatch normal colouring (fd or grad) of all verts."""
         return self._chunked_start(
             lambda vq, lo, sc: self._normals_dispatch(vq, lo, sc, feats,
                                                       calib), verts)
@@ -393,7 +555,7 @@ class Reconstructor:
     def color_by_image(self, verts: np.ndarray, image,
                        calib) -> np.ndarray:
         """Project verts into ``image [H, W, C]`` and sample colours."""
-        with torch.inference_mode():
+        with self._no_autograd():
             image, calib = self._tensor(image), self._tensor(calib)
             return self._chunked_start(
                 lambda vq, lo, sc: self._img_color_dispatch(
@@ -504,9 +666,8 @@ class Reconstructor:
             else data["calib"], np.float32)
         return self._tensor(calib_np), calib_np
 
-    def _require_octree(self, use_octree) -> None:
-        if not (self.opt.use_octree if use_octree is None else use_octree):
-            raise ValueError("the dense (non-octree) path is not ported")
+    def _use_octree(self, use_octree) -> bool:
+        return self.opt.use_octree if use_octree is None else use_octree
 
     def _begin(self) -> None:
         self.query_calls = 0
@@ -530,39 +691,61 @@ class Reconstructor:
             montage = self._montage_start(data, feats)
         return calib, calib_np, feats, montage
 
-    def _march_one_shot(self, feats, calib, calib_np, res: int):
-        """One-shot field evaluation, then marching: world verts, faces."""
-        field = self.evaluate_field(feats[0], feats[1], calib, res)
-        with self.timed("march"):
-            verts_idx, faces = marching_tetrahedra_sparse3(
-                *field, res, algorithm=self.opt.marching_algo)
+    def _march(self, feats, calib, calib_np, res: int, use_octree: bool):
+        """Field evaluation and marching in one shot: the octree field
+        (``evaluate_field``, ``extract_mesh``) or the dense volume
+        (``occupancy_volume``, ``marching_tetrahedra``); world verts,
+        faces."""
+        algo = self.opt.marching_algo
+        if use_octree:
+            field = self.evaluate_field(feats[0], feats[1], calib, res)
+            with self.timed("march"):
+                verts_idx, faces = self.extract_mesh(field, res,
+                                                     algorithm=algo)
+        else:
+            vol, _ = self.occupancy_volume(feats[0], feats[1], calib, res,
+                                           use_octree=False)
+            with self.timed("march"):
+                verts_idx, faces = marching_tetrahedra(vol, algorithm=algo)
         if len(verts_idx) == 0:
             raise RuntimeError("marching produced an empty mesh")
         return self._to_world(verts_idx, faces, calib_np, res)
 
-    def _device_stage_normals(self, data: dict, res: int):
+    def _device_stage_normals(self, data: dict, res: int,
+                              use_octree: bool = True):
         """Everything of a normal-coloured mesh that launches kernels (and
         the marching between the launches): ``(verts, faces, montage,
-        colour job)``."""
+        colour job)``.  The three-level octree streams its bands and
+        colours as it marches, unless the normals are the mesh's own,
+        which need the whole mesh (``_HostColorJob``, computed by whoever
+        first reads it)."""
         from .streamed import reconstruct_streamed
 
         calib, calib_np, feats, montage = self._encode_subject(data)
-        if (getattr(self.opt, "octree_levels", 3) == 3 and res % 8 == 0
+        mesh_normals = getattr(self.opt, "normal_mode", "fd") == "mesh"
+        if (use_octree and not mesh_normals
+                and getattr(self.opt, "octree_levels", 3) == 3
+                and res % 8 == 0
                 and getattr(self.opt, "streamed_recon", True)):
             verts, faces, job, _ = reconstruct_streamed(
                 self, res, calib, calib_np, feats)
             if len(verts) == 0:
                 raise RuntimeError("marching produced an empty mesh")
+            return verts, faces, montage, job
+        verts, faces = self._march(feats, calib, calib_np, res, use_octree)
+        if mesh_normals:
+            job = _HostColorJob(lambda: compute_vertex_normals(verts, faces)
+                                * 0.5 + 0.5)
         else:
-            verts, faces = self._march_one_shot(feats, calib, calib_np, res)
             job = self.color_by_normals_start(verts, feats, calib)
         return verts, faces, montage, job
 
-    def _device_stage_img(self, data: dict, res: int, cleanup: bool):
+    def _device_stage_img(self, data: dict, res: int, cleanup: bool,
+                          use_octree: bool = True):
         """The same for an image-coloured mesh: ``(verts, faces, montage,
         finish)``, ``finish() -> (colors, xyz_proj)`` only waiting."""
         calib, calib_np, feats, montage = self._encode_subject(data)
-        verts, faces = self._march_one_shot(feats, calib, calib_np, res)
+        verts, faces = self._march(feats, calib, calib_np, res, use_octree)
         return verts, faces, montage, self._sample_img_colors_start(
             verts, data, cleanup)
 
@@ -583,15 +766,17 @@ class Reconstructor:
 
     def reconstruct(self, data: dict, resolution: int | None = None,
                     use_octree: bool | None = None):
-        """Field -> world-space mesh: ``(verts, faces, feats)``."""
-        self._require_octree(use_octree)
+        """Field -> world-space mesh: ``(verts, faces, feats)``; the octree
+        field (``opt.octree_levels``) or, with ``use_octree=False``, every
+        lattice point."""
         res = resolution or self.opt.resolution
-        with torch.inference_mode():
+        with self._no_autograd():
             calib, calib_np = self._calibs(data)
             with self.timed("encode"):
                 feats = self.encode(self._tensor(data["img"]),
                                     self._tensor(data["img_512"]))
-            verts, faces = self._march_one_shot(feats, calib, calib_np, res)
+            verts, faces = self._march(feats, calib, calib_np, res,
+                                       self._use_octree(use_octree))
         return verts, faces, feats
 
     # ------------------------------------------------------------ gen_mesh
@@ -604,11 +789,11 @@ class Reconstructor:
         Returns verts, faces, secs, grid_diag and a ``phases`` breakdown.
         """
         t0 = time.time()
-        self._require_octree(use_octree)
         res = resolution or self.opt.resolution
         self._begin()
-        with torch.inference_mode():
-            stage = self._device_stage_normals(data, res)
+        with self._no_autograd():
+            stage = self._device_stage_normals(data, res,
+                                               self._use_octree(use_octree))
             t1 = time.time()
             out = self._host_stage(stage, data, save_path, 0)
         t2 = time.time()
@@ -624,11 +809,11 @@ class Reconstructor:
         connected component and inpaints back-facing vertex colours from
         the silhouette boundary."""
         t0 = time.time()
-        self._require_octree(use_octree)
         res = resolution or self.opt.resolution
         self._begin()
-        with torch.inference_mode():
-            stage = self._device_stage_img(data, res, cleanup)
+        with self._no_autograd():
+            stage = self._device_stage_img(data, res, cleanup,
+                                           self._use_octree(use_octree))
             out = self._host_stage(stage, data, save_path, 2 if cleanup
                                    else 1)
         out.update(secs=time.time() - t0, grid_diag=self.last_grid_diag,
@@ -653,7 +838,8 @@ class Reconstructor:
         ``pipeline=None`` takes the worker when the host has more than one
         core, else the sequential loop.  ``items`` may be any iterable (a
         generator keeps two subjects in memory); ``save_paths`` a parallel
-        iterable of paths or a callable ``data -> path``.
+        iterable of paths or a callable ``data -> path``.  The field is the
+        octree's whatever ``opt.use_octree`` says, as in the JAX package.
         """
         res = resolution or self.opt.resolution
         if callable(save_paths):
@@ -671,7 +857,6 @@ class Reconstructor:
                     else self.gen_mesh_img_color(d, p, res,
                                                  cleanup=use_color == 2)
                     for d, p in pairs]
-        self._require_octree(None)
 
         def host_stage(stage, data, save_path, t0, diag, counters):
             sink: dict = {}
@@ -687,7 +872,7 @@ class Reconstructor:
             for data, save_path in pairs:
                 t0 = time.time()
                 self._begin()
-                with torch.inference_mode():
+                with self._no_autograd():
                     stage = (self._device_stage_normals(data, res)
                              if use_color == 0 else
                              self._device_stage_img(data, res,
@@ -790,3 +975,26 @@ def estimate_back_colors(colors: np.ndarray, xyz: np.ndarray,
         ok = cnt > 0
         colors[ids[ok]] = (acc[ok] / cnt[ok, None]).astype(colors.dtype)
     return colors
+
+
+class CoarseReconstructor(Reconstructor):
+    """Single-level reconstruction from the coarse model alone (port of the
+    JAX package's ``CoarseReconstructor``): one RGB-D image (``img_512``;
+    ``img`` is ignored) -> ``CoarsePIFu`` -> grid -> mesh, on the
+    two-level machinery with the fine level absent.  ``model`` is a
+    ``CoarsePIFu``."""
+
+    def encode(self, img_local, img_global):
+        return None, self.model.filter(img_global, last_only=True)
+
+    def _query(self, world_pts, l_feats, g_feats, calib):
+        """[M, 3] world points -> [M] occupancy of the last stack."""
+        self._count(world_pts.shape[0])
+        return self.model.query(g_feats, world_pts[None],
+                                calib[None]).preds[-1, 0, :, 0]
+
+    def _field_last(self, pts, feats, calib):
+        return self.model.field_last(feats[1], pts[None], calib[None])[0, :, 0]
+
+    def _calc_normal(self, verts, feats, calib):
+        return self.model.calc_normal(feats[1], verts[None], calib[None])[0]

@@ -16,7 +16,9 @@ whose attribute names follow the flax tree one to one (``netG/netF/down0``
 - ConvTranspose (``up{i}`` of a GlobalGenerator) HWIO -> torch
   ``ConvTranspose2d`` ``[in, out, kh, kw]`` with the spatial flip undone
   (the inverse of ``rgbd_pifuhd_tpu/utils/torch_import.py:102-106``);
-- GroupNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``.
+- GroupNorm and BatchNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
+- the ``batch_stats`` collection's ``mean`` / ``var`` -> the BatchNorm
+  buffers of the same names.
 """
 
 from __future__ import annotations
@@ -138,11 +140,18 @@ def _map_leaves(tree, fn):
 
 
 def load_checkpoint(path: str, device=None) -> dict:
-    """Read a JAX-package checkpoint; params become f32 tensors on
-    ``device`` (default ``cuda``; raises without CUDA unless 'cpu')."""
+    """Read a JAX-package checkpoint, or a reference PyTorch one (detected
+    by its magic; ``utils.torch_import``, which marks the payload
+    ``torch_import``); params become f32 tensors on ``device`` (default
+    ``cuda``; raises without CUDA unless 'cpu')."""
+    from .torch_import import is_torch_checkpoint, load_reference_checkpoint
+
     dev = resolve_device(device)
-    with open(path, "rb") as f:
-        payload = msgpack_restore(f.read())
+    if is_torch_checkpoint(path):
+        payload = load_reference_checkpoint(path)
+    else:
+        with open(path, "rb") as f:
+            payload = msgpack_restore(f.read())
 
     def to_tensor(x):
         if isinstance(x, np.ndarray) and x.dtype.kind == "f":
@@ -165,9 +174,11 @@ _DECONV = re.compile(r"^up\d+$")
 
 
 def params_from_flax(tree: dict) -> dict:
-    """Flax parameter tree (numpy or torch leaves) -> torch state_dict."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    """Flax variables (``{"params": ..., "batch_stats": ...}``) or a bare
+    parameter tree, numpy or torch leaves -> torch state_dict."""
+    trees = [tree]
+    if "params" in tree and set(tree) <= {"params", "batch_stats"}:
+        trees = [tree["params"], tree.get("batch_stats", {})]
     out: dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -193,7 +204,8 @@ def params_from_flax(tree: dict) -> dict:
                 name = k
             out[".".join(path + [name])] = t.contiguous()
 
-    walk(tree, [])
+    for t in trees:
+        walk(t, [])
     return out
 
 

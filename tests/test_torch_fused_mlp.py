@@ -312,8 +312,7 @@ def test_wgmma_plan_fits_and_covers_every_layer(name):
     chans, res, bm, stages = PLAN_SHAPES[name]
     packed = _bf16_mlp(chans, res)
     plan = fm.plan_wgmma(packed)
-    assert (plan.bm, (plan.xstages, plan.stages), plan.cluster) == (
-        bm, stages, fm.DEFAULT_CLUSTER)
+    assert (plan.bm, (plan.xstages, plan.stages)) == (bm, stages)
     assert plan.cp == 2 // (bm // 64)
     # regions: activations at 0, the x0 ring, the weights' ring, each
     # 1024-byte aligned, inside the block's 232,448 bytes with the static
@@ -348,9 +347,8 @@ def test_wgmma_plan_fits_and_covers_every_layer(name):
 
 def test_wgmma_plan_hints():
     fine = _bf16_mlp(*PLAN_SHAPES["fine"][:2])
-    p64 = fm.plan_wgmma(fine, rows=64, cluster=4)
-    assert (p64.bm, p64.cp, p64.cluster, p64.xstages, p64.stages) == (
-        64, 2, 4, 4, 8)
+    p64 = fm.plan_wgmma(fine, rows=64)
+    assert (p64.bm, p64.cp, p64.xstages, p64.stages) == (64, 2, 4, 8)
     assert [d["CN"] for d in p64.layers] == [64, 64, 64, 8]
     assert [d["P"] for d in p64.layers] == [4, 2, 1, 1]
     coarse = _bf16_mlp(*PLAN_SHAPES["coarse"][:2])
@@ -360,29 +358,27 @@ def test_wgmma_plan_hints():
     # layer that reads resident activations would need two groups
     with pytest.raises(ValueError, match="fits shared memory"):
         fm.plan_wgmma(coarse, rows=128)
-    for bad in (dict(rows=32), dict(cluster=3)):
+    for bad in (dict(rows=32), dict(rows=256)):
         with pytest.raises(ValueError):
             fm.plan_wgmma(fine, **bad)
     f32 = tmodels.PointMLP((48, 64, 32, 1), 2, (1,), "none",
                            device="cpu").packed()
     with pytest.raises(ValueError, match="bf16"):
         fm.plan_wgmma(f32)
-    assert fm._hint(None) == (None, None) and fm._hint(64) == (64, None)
-    assert fm._hint((None, 4)) == (None, 4) and fm._hint((128, 1)) == (128, 1)
 
 
 def test_wgmma_params_from_plan():
     chans, res = PLAN_SHAPES["coarse"][:2]
     packed = _bf16_mlp(chans, res)
-    plan = fm.plan_wgmma(packed, cluster=1)
+    plan = fm.plan_wgmma(packed)
     x = torch.zeros((100, 264), dtype=torch.bfloat16)
     out = torch.zeros((100, 1))
     p = fm.wg_params(x, out, packed, plan, "sigmoid")
     assert (p.x, p.out) == (x.data_ptr(), out.data_ptr())
     assert (p.n_layers, p.N, p.C0, p.ldx, p.sigmoid) == (5, 100, 257, 264, 1)
-    assert (p.bm, p.cluster, p.stages, p.stage_bytes, p.ring_off, p.xstages,
+    assert (p.bm, p.stages, p.stage_bytes, p.ring_off, p.xstages,
             p.xring_off, p.smem_bytes) == (
-        plan.bm, 1, plan.stages, plan.stage_bytes, plan.ring_off,
+        plan.bm, plan.stages, plan.stage_bytes, plan.ring_off,
         plan.xstages, plan.xring_off, plan.smem_bytes)
     for i, (d, L) in enumerate(zip(plan.layers, packed.layers)):
         assert p.w[i] == L.weight_k.data_ptr()

@@ -1,5 +1,8 @@
-"""Three-level octree evaluation: the port against the JAX package on one
-analytic capsule field at res 64, byte for byte.
+"""Grid evaluation: the port against the JAX package on one analytic
+capsule field, byte for byte — the three-level octree at res 64, the
+two-level one (at res 128 too, so that its budget takes several query
+calls), the dense lattice, the host reassembly of the sparse results
+(``densify_*``) and the marchers over each field.
 
 The field is exact in both frameworks: lattice points map to dyadic world
 coordinates (calib_inv = 2 I + t), and the capsule's squared distance and
@@ -146,3 +149,91 @@ def test_marching_matches_reference(algorithm, tmp_path):
     jsave(str(tmp_path / "jax.obj"), v, f, colors)
     assert (tmp_path / "port.obj").read_bytes() == \
         (tmp_path / "jax.obj").read_bytes()
+
+
+# ------------------------------------------- two-level and dense evaluators
+RES2 = 128      # 16^3 cells: budgets below n^3 take several query calls
+
+
+@pytest.mark.parametrize("budget", [700, 1024, 4096])
+def test_two_phase_sparse_byte_equal(budget):
+    """Budgets round down to the 512-cell query chunk (700 -> 512) and
+    cap at n^3 (4096: every cell, ties in the tail of the top-K)."""
+    jc, tc = jnp.asarray(C, jnp.float32), torch.tensor(C)
+    jo = jgrid.eval_grid_two_phase_sparse(
+        jfield, RES2, jnp.asarray(CALIB_INV), jc, budget_cells=budget)
+    to = tgrid.eval_grid_two_phase_sparse(
+        tfield, RES2, torch.from_numpy(CALIB_INV), tc, budget_cells=budget)
+    for name, a, b in zip(("corner_q", "top_idx", "refined"), to[:3],
+                          jo[:3]):
+        _eq(name, a, b)
+    for k in ("kth_activity", "n_active", "budget_cells"):
+        assert float(to[3][k]) == float(jo[3][k]), k
+    assert int(to[3]["budget_cells"]) == min(budget // 512 * 512, 4096)
+    assert len(np.unique(to[2].numpy())) > 4
+
+
+def test_two_phase_dense_and_dense_equal():
+    jc, tc = jnp.asarray(C, jnp.float32), torch.tensor(C)
+    jinv, tinv = jnp.asarray(CALIB_INV), torch.from_numpy(CALIB_INV)
+    jv, jd = jgrid.eval_grid_two_phase(jfield, RES, jinv, jc,
+                                       budget_cells=200, cells_per_chunk=64)
+    tv, td = tgrid.eval_grid_two_phase(tfield, RES, tinv, tc,
+                                       budget_cells=200, cells_per_chunk=64)
+    _eq("two-phase volume", tv, jv)
+    assert int(td["n_active"]) == int(jd["n_active"])
+    _eq("dense volume", tgrid.eval_grid_dense(tfield, RES, tinv, tc),
+        jgrid.eval_grid_dense(jfield, RES, jinv, jc))
+
+
+def test_densify_equal():
+    """Host reassembly of both sparse results: the three-level oracle and
+    the two-level native ``densify`` (dense, and limited to the scan
+    marks' neighbourhood) against the JAX package's."""
+    tinv, tc = torch.from_numpy(CALIB_INV), torch.tensor(C)
+    out3 = [np.asarray(x) for x in tgrid.eval_grid_three_phase_sparse(
+        tfield, RES, tinv, tc, budget_cells=128, budget_subcells=640)[:5]]
+    _eq("densify3", tgrid.densify_sparse3_volume(*out3, RES),
+        jgrid.densify_sparse3_volume(*out3, RES))
+    corner, top, refined, _ = tgrid.eval_grid_two_phase_sparse(
+        tfield, RES2, tinv, tc, budget_cells=1024)
+    corner, top, refined = corner.numpy(), top.numpy(), refined.numpy()
+    _eq("densify", tgrid.densify_sparse_volume(corner, top, refined, RES2),
+        jgrid.densify_sparse_volume(corner, top, refined, RES2))
+    _, marks = tgrid.sparse_scan_cells(corner, top, RES2)
+    buf = np.full((RES2,) * 3, 7.0, np.float32)
+    got = tgrid.densify_sparse_volume(corner, top, refined, RES2,
+                                      scan_marks=marks, out=buf)
+    assert got is buf
+    _eq("densify marked", got, jgrid.densify_sparse_volume(
+        corner, top, refined, RES2, scan_marks=marks))
+
+
+@pytest.mark.parametrize("algorithm", ["mc", "mt"])
+def test_dense_and_two_level_marching_match_reference(algorithm):
+    """``marching_tetrahedra`` (dense, ``mt_run``) and
+    ``marching_tetrahedra_sparse`` (two-level, ``mt_run_sparse``): the
+    reference's mesh as vertex and triangle sets."""
+    from rgbd_pifuhd_tpu.recon import marching as jm
+    from rgbd_pifuhd_tpu_torch.recon import marching as tm
+
+    def same(name, got, ref):
+        (v, f), (jv, jf) = got, ref
+        assert len(jv) > 100
+        o, oj = np.lexsort(v.T), np.lexsort(jv.T)
+        _eq(f"{name} verts", v[o], jv[oj])
+        t, tj = v[f].reshape(-1, 9), jv[jf].reshape(-1, 9)
+        _eq(f"{name} triangles", t[np.lexsort(t.T)], tj[np.lexsort(tj.T)])
+
+    tinv, tc = torch.from_numpy(CALIB_INV), torch.tensor(C)
+    vol = tgrid.eval_grid_dense(tfield, RES, tinv, tc).numpy()
+    same("dense", tm.marching_tetrahedra(vol, algorithm=algorithm),
+         jm.marching_tetrahedra(vol, algorithm=algorithm))
+    corner, top, refined, _ = tgrid.eval_grid_two_phase_sparse(
+        tfield, RES2, tinv, tc, budget_cells=1024)
+    corner, top, refined = corner.numpy(), top.numpy(), refined.numpy()
+    cells, _ = tgrid.sparse_scan_cells(corner, top, RES2)
+    same("two-level", tm.marching_tetrahedra_sparse(
+        corner, top, refined, cells, RES2, algorithm=algorithm),
+        jm.marching_tetrahedra_sparse(corner, top, refined, cells, RES2,
+                                      algorithm=algorithm))

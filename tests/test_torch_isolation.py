@@ -20,6 +20,10 @@ BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "cv2", "PIL",
           "rgbd_pifuhd_tpu")
 SERVING_MODULES = ("cli.common", "cli.run_recon", "cli.serve", "data.readdata",
            "data.preprocessing", "utils.png", "ops.fused_mlp")
+# the rest of inference: JPEG subjects, reference .pth checkpoints, the
+# two-level / dense evaluators and marchers, CoarseReconstructor
+INFERENCE_MODULES = ("utils.jpeg", "utils.torch_import", "recon.grid",
+                     "recon.marching", "recon.mesh", "recon.pipeline")
 
 
 def _banned(name: str) -> bool:
@@ -68,7 +72,7 @@ def test_import_every_module_without_jax():
                and sys.modules[m] is not None]
         assert not bad, bad
         assert len(names) >= 24, names
-        for n in {SERVING_MODULES!r}:
+        for n in {SERVING_MODULES + INFERENCE_MODULES!r}:
             assert pkg.__name__ + "." + n in names, n
         print(len(names))
     """)
@@ -169,3 +173,67 @@ def test_cli_entry_points_refuse_silent_cpu(tmp_path):
     run_recon.main(args + ["--device", "cpu"])      # empty directory: no-op
     with pytest.raises(SystemExit, match="checkpoint not found"):
         serve.main(["--checkpoints_path", str(tmp_path), "--device", "cpu"])
+
+
+def test_inference_paths_run_without_jax():
+    """With JAX, flax, msgpack, cv2, PIL and the JAX package blocked: the
+    grad and mesh normal modes, the two-level and dense evaluators and
+    ``CoarseReconstructor`` mesh a tiny random model on the CPU, a JPEG
+    subject is read, and a reference ``.pth`` is recognised."""
+    code = textwrap.dedent(f"""
+        import sys, tempfile, os
+        for m in {BANNED!r}:
+            sys.modules[m] = None
+        sys.path.insert(0, {REPO!r})
+        import dataclasses
+        import numpy as np
+        import torch
+        from rgbd_pifuhd_tpu_torch.data.readdata import InferenceDataset
+        from rgbd_pifuhd_tpu_torch.models import CoarsePIFu, MultiResPIFu
+        from rgbd_pifuhd_tpu_torch.recon import (CoarseReconstructor,
+                                                 Reconstructor)
+        from rgbd_pifuhd_tpu_torch.utils.options import (Options,
+                                                         PIFuLevelConfig)
+        from rgbd_pifuhd_tpu_torch.utils.torch_import import (
+            is_torch_checkpoint)
+        torch.manual_seed(0)
+        g = PIFuLevelConfig(num_stack=1, hg_depth=1, hg_dim=8,
+                            mlp_dim=(9, 32, 32, 1), mlp_res_layers=(),
+                            mlp_norm="none", merge_layer=1,
+                            use_front_normal=False, use_back_normal=False,
+                            load_size=64)
+        l = PIFuLevelConfig(num_stack=1, hg_depth=1, hg_dim=4,
+                            hg_down="no_down", mlp_dim=(36, 16, 1),
+                            mlp_res_layers=(), mlp_norm="none",
+                            merge_layer=-1, use_front_normal=False,
+                            use_back_normal=False, load_size=64)
+        data = InferenceDataset(os.path.join({REPO!r}, "tests", "data",
+                                             "jpeg_subject"), 64)[0]
+        assert data["img"].shape == (1, 64, 64, 6)
+        tmp = tempfile.mkdtemp()
+        m = MultiResPIFu(l, g, device="cpu")
+        for kw in (dict(normal_mode="grad"), dict(normal_mode="mesh"),
+                   dict(octree_levels=2), dict(use_octree=False)):
+            r = Reconstructor(m, Options(resolution=16, **kw), device="cpu")
+            try:
+                r.gen_mesh(data, os.path.join(tmp, "m.obj"), resolution=16)
+            except RuntimeError as e:        # a random field may be empty
+                assert "empty mesh" in str(e), e
+        r = CoarseReconstructor(CoarsePIFu(g, device="cpu"),
+                                Options(resolution=16), device="cpu")
+        try:
+            r.gen_mesh(data, os.path.join(tmp, "c.obj"), resolution=16)
+        except RuntimeError as e:
+            assert "empty mesh" in str(e), e
+        p = os.path.join(tmp, "x.pth")
+        torch.save({{"model_state_dict": {{}}}}, p)
+        assert is_torch_checkpoint(p)
+        bad = [k for k in sys.modules
+               if (k == "rgbd_pifuhd_tpu" or k.startswith("rgbd_pifuhd_tpu."))
+               and sys.modules[k] is not None]
+        assert not bad, bad
+        print("ok")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and "ok" in r.stdout, r.stderr

@@ -138,8 +138,8 @@ def test_serve_requests_and_errors(world):
 
 
 def test_serve_loop_in_process(world):
-    """``_serve_loop`` itself, image colours + cleanup + PLY, and a JPEG
-    subject answered with an error line."""
+    """``_serve_loop`` itself, image colours + cleanup + PLY, and a
+    truncated JPEG subject answered with an error line."""
     tmp = world["tmp"]
     opt = Options.from_dict(dict(
         JOptions(resolution=RES, load_size=64, use_color=2,
@@ -159,7 +159,7 @@ def test_serve_loop_in_process(world):
     assert got[0]["name"] == "zwei" and got[0]["mesh"].endswith(".ply")
     v, f, c = tmesh.load_ply(got[0]["mesh"])
     assert len(v) == got[0]["verts"] > 0 and c is not None
-    assert "PNG" in got[1]["error"] and got[1]["request"] == str(jpg)
+    assert "JPEG" in got[1]["error"] and got[1]["request"] == str(jpg)
 
 
 # ---------------------------------------------------------- gen_mesh_many
