@@ -182,6 +182,9 @@ def main() -> None:
 
     served = {} if kernels_only else served_path()
     mlp_launches = served.get("b", {}).get("fused_point_mlp", 0)
+    # ---- 6b. training: the port's own tree, card against CPU, the CLI
+    if not kernels_only:
+        train_phase(torch, dev, smi_line)
     if "--profile" in sys.argv[1:]:
         profile_gen_mesh(torch, model, opt, dev)
 
@@ -214,6 +217,255 @@ def main() -> None:
         sys.exit("--kernels-only: the main path and the served path were "
                  "not driven, so no ok line")
     print(json.dumps({"ok": True, "device": device_info(torch)}))
+
+
+# ------------------------------------------------------------- training
+TRAIN_SUBJECTS = ("sphere", "capsule", "bumpy")
+TRAIN_STEPS_EPOCHS = 10          # 3 items x 10 epochs = 30 steps a stage
+# the gradient tolerance of tests/test_torch_train_step.py: 16 times the
+# leaf's own one-ulp spread (the CPU gradient's change when the input
+# images move by one float32 ulp) + 1e-6 of the tree's largest |gradient|
+GRAD_ULPS, GRAD_FLOOR = 16.0, 1e-6
+
+
+def _train_grads(torch, model, fn, batch):
+    """Loss and ``{name: gradient}`` of one training forward on ``batch``
+    (no optimiser step), batch-norm buffers restored afterwards."""
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    model.zero_grad(set_to_none=True)
+    loss = fn(model, batch)
+    loss.backward()
+    # copies: on the CPU .cpu() would alias what load_state_dict restores
+    grads = {n: p.grad.detach().float().cpu().clone() for n, p in
+             model.named_parameters() if p.grad is not None}
+    stats = {k: v.detach().cpu().clone() for k, v in
+             model.state_dict().items() if k.endswith((".mean", ".var"))}
+    model.load_state_dict(saved)
+    return float(loss.detach()), grads, stats
+
+
+def _card_against_cpu(torch, dev, root) -> dict:
+    """One fine and one coarse training forward + backward at tiny widths,
+    f32, on the card and on the CPU from the same parameters and batch:
+    loss within 1e-5 relative, gradients within the CPU test's tolerance
+    (16 x the CPU gradient's one-ulp spread + 1e-6 of its largest
+    value), running statistics within 1e-5."""
+    import dataclasses
+
+    import numpy as np
+
+    from rgbd_pifuhd_tpu_torch.data.datasets import TrainDataset
+    from rgbd_pifuhd_tpu_torch.models import CoarsePIFu, MultiResPIFu
+    from rgbd_pifuhd_tpu_torch.models.blocks import init_flax
+    from rgbd_pifuhd_tpu_torch.train.loop import collate_coarse, collate_fine
+    from rgbd_pifuhd_tpu_torch.utils.options import Options, PIFuLevelConfig
+
+    g = PIFuLevelConfig(num_stack=2, hg_depth=1, hg_dim=8,
+                        mlp_dim=(9, 64, 32, 32, 1), mlp_res_layers=(1,),
+                        mlp_norm="group", merge_layer=2, nml_ngf=8,
+                        nml_n_downsampling=2, nml_n_blocks=1)
+    loc = PIFuLevelConfig(num_stack=1, hg_depth=1, hg_dim=4,
+                          hg_down="no_down", mlp_dim=(36, 32, 32, 1),
+                          mlp_res_layers=(1,), mlp_norm="group",
+                          merge_layer=-1)
+    opt = Options(dataroot=root, load_size=1024, load_size_big=128,
+                  load_size_local=64, num_sample_inout=256, sigma=8.0)
+    d = TrainDataset(opt, seed=2)
+    items = [d[0], d[1]]
+    fb, cb = collate_fine(items), collate_coarse(items)
+
+    def fine(m, b):
+        return m(b["images_local"], b["images_global"], b["points"],
+                 b["calib_local"], b["calib_global"], b["labels"])[0][
+                     "occ_fine"]
+
+    def coarse(m, b):
+        return m(b["images"], b["points"], b["calibs"], b["labels"], 0.1)[0]
+
+    out = {}
+    for name, make, fn, batch, keys in (
+            ("fine_group", lambda: MultiResPIFu(loc, g, device="cpu"), fine,
+             fb, ("images_local", "images_global")),
+            ("coarse_batch", lambda: CoarsePIFu(dataclasses.replace(
+                g, norm="batch", mlp_norm="batch"), device="cpu"), coarse,
+             cb, ("images",))):
+        cpu = make()
+        init_flax(cpu, torch.Generator().manual_seed(3))
+        card = make().to(dev)
+        card.load_state_dict(cpu.state_dict())
+        lc, gc, sc = _train_grads(torch, cpu, fn, batch)
+        lg, gg, sg = _train_grads(torch, card, fn, {
+            k: v.to(dev) for k, v in batch.items()})
+        rng = np.random.default_rng(0)
+        spread = {k: torch.zeros_like(v) for k, v in gc.items()}
+        for _ in range(2):
+            pb = dict(batch)
+            for k in keys:
+                sign = torch.from_numpy(rng.choice([-1.0, 1.0], tuple(
+                    pb[k].shape)).astype(np.float32))
+                pb[k] = pb[k] * (1 + sign * 2.0 ** -23)
+            _, gp, _ = _train_grads(torch, cpu, fn, pb)
+            spread = {k: torch.maximum(spread[k], (gp[k] - gc[k]).abs())
+                      for k in gc}
+        if abs(lg - lc) > 1e-5 * abs(lc) or not np.isfinite(lg):
+            fail(f"[train] {name}: card loss {lg!r} vs CPU {lc!r}")
+        if set(gg) != set(gc):
+            fail(f"[train] {name}: gradients of other parameters "
+                 f"{sorted(set(gg) ^ set(gc))[:4]}")
+        top = max(float(v.abs().max()) for v in gc.values())
+        worst = 0.0
+        for k in gc:
+            err = float((gg[k] - gc[k]).abs().max())
+            sp = float(spread[k].max())
+            if err > GRAD_ULPS * sp + GRAD_FLOOR * top:
+                fail(f"[train] {name}: gradient of {k} off by {err:.3e} "
+                     f"(CPU one-ulp spread {sp:.3e}, top {top:.3e})")
+            if GRAD_ULPS * sp > GRAD_FLOOR * top:
+                worst = max(worst, err / sp)
+        init = cpu.state_dict()
+        if sc and all(torch.equal(sc[k], init[k]) for k in sc):
+            fail(f"[train] {name}: the step updated no running statistic")
+        stat_err = max([float((sg[k] - sc[k]).abs().max()) for k in sc]
+                       + [0.0])
+        if stat_err > 1e-5:
+            fail(f"[train] {name}: running statistics off by {stat_err}")
+        out[name] = {"loss_card": lg, "loss_cpu": lc,
+                     "loss_rel_err": abs(lg - lc) / abs(lc),
+                     "grad_err_over_spread": round(worst, 3),
+                     "stats_max_abs_err": stat_err, "n_grads": len(gc)}
+    return out
+
+
+def _run_train(args, cwd, log_path) -> dict:
+    """One ``cli.run_train`` process on the card: its per-step losses,
+    step and data milliseconds, peak memory and seconds."""
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        r = subprocess.run(
+            [sys.executable, "-m", "rgbd_pifuhd_tpu_torch.cli.run_train"]
+            + args, cwd=cwd, stdout=subprocess.PIPE, stderr=log, text=True,
+            timeout=900, env={**os.environ, "PYTHONPATH": HERE})
+    secs = time.time() - t0
+    if r.returncode != 0:
+        fail(f"run_train {args[:2]} exit {r.returncode}: "
+             f"{open(log_path).read()[-3000:]}")
+    losses, step_ms, data_ms, peak = [], [], [], None
+    for ln in r.stdout.splitlines():
+        if ln.startswith("Name: "):
+            losses.append(float(ln.split("Err: ")[1].split()[0]))
+            data_ms.append(float(ln.split("stepD: ")[1].split("ms")[0]))
+            step_ms.append(float(ln.split("stepN: ")[1].split("ms")[0]))
+        elif ln.startswith("peak device memory: "):
+            peak = int(ln.split(": ")[1].split()[0])
+    import numpy as np
+
+    if not losses or not np.isfinite(losses).all() or peak is None:
+        fail(f"run_train {args[:2]}: losses {losses[:5]}..., peak {peak}")
+    warm = step_ms[3:] or step_ms
+    return {"steps": len(losses), "first_loss": losses[0],
+            "last_loss": losses[-1], "median_step_ms": float(
+                np.median(warm)), "median_data_ms": float(np.median(
+                    data_ms[3:] or data_ms)), "peak_mem_bytes": peak,
+            "process_s": round(secs, 2)}
+
+
+def train_phase(torch, dev, smi_line) -> None:
+    """``[train]``: the port writes a training tree, one training step is
+    held card against CPU, ``cli.run_train`` pretrains the coarse model
+    and trains the fine one at the paper's widths (bf16), netG stays
+    bit-equal through the fine stage, and the fine checkpoint meshes."""
+    import dataclasses
+
+    import numpy as np
+
+    from rgbd_pifuhd_tpu_torch.cli.common import load_reconstructor
+    from rgbd_pifuhd_tpu_torch.data.datasets import TrainDataset
+    from rgbd_pifuhd_tpu_torch.data.synthetic import (
+        generate_synthetic_dataset)
+    from rgbd_pifuhd_tpu_torch.utils import checkpoint as ckpt
+    from rgbd_pifuhd_tpu_torch.utils.options import Options
+
+    torch.cuda.empty_cache()
+    base = os.path.join(OUT_DIR, "train")
+    shutil.rmtree(base, ignore_errors=True)
+    root = os.path.join(OUT_DIR, "traindata")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.time()
+    generate_synthetic_dataset(root, TRAIN_SUBJECTS, size=512,
+                               load_size=1024)
+    tree_s = time.time() - t0
+    parity = _card_against_cpu(torch, dev, root)
+    phase("train", json.dumps({"tree": f"{len(TRAIN_SUBJECTS)} subjects, "
+                               "size 512, load_size 1024",
+                               "tree_s": round(tree_s, 2),
+                               "card_vs_cpu": parity}))
+    ck = os.path.join(base, "ck")
+    os.makedirs(ck)
+    common = ["--dataroot", root, "--name", "smoke", "--checkpoints_path",
+              ck, "--compute_dtype", "bfloat16", "--num_sample_inout",
+              "4096", "--sigma", "8", "--batch_size", "1", "--num_epoch",
+              str(TRAIN_STEPS_EPOCHS), "--freq_save", "1000"]
+    stages = {}
+    stages["coarse"] = _run_train(["--stage", "coarse"] + common, base,
+                                  os.path.join(base, "coarse.log"))
+    g_path = ckpt.latest_path(ck, "smoke_netG")
+    stages["fine"] = _run_train(
+        ["--stage", "fine", "--load_netG_checkpoint_path", g_path] + common,
+        base, os.path.join(base, "fine.log"))
+    for k, v in stages.items():
+        phase(f"train_{k}", json.dumps({**v, "card": smi_line,
+                                        "widths": "paper defaults, bf16"}))
+    # netG bit-equal through the fine stage; netMR moved after epoch 0
+    g = ckpt.load_checkpoint(g_path, device="cpu")["params"]["params"]
+    fine_path = ckpt.latest_path(ck, "smoke")
+    fine = ckpt.load_checkpoint(fine_path, device="cpu")["params"]["params"]
+    e0 = ckpt.load_checkpoint(ckpt.epoch_path(ck, "smoke", 0),
+                              device="cpu")["params"]["params"]
+
+    def leaves(t, pre=()):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k], pre + (k,))
+        else:
+            yield pre, t
+
+    n_g = 0
+    for path, t in leaves(g):
+        node = fine["netG"]
+        for k in path:
+            node = node[k]
+        if not torch.equal(node, t):
+            fail(f"[train] netG changed in the fine stage at {path}")
+        n_g += 1
+    moved = [p for (p, a), (_, b) in zip(leaves(fine["mlp"]),
+                                         leaves(e0["mlp"]))
+             if not torch.equal(a, b)]
+    if not moved:
+        fail("[train] the fine MLP did not change after epoch 0")
+    del g, fine, e0
+    # round trip: the fine checkpoint meshes at 256^3
+    opt = Options(load_netMR_checkpoint_path=fine_path, results_path=base,
+                  resolution=256)
+    recon, opt_model, _ = load_reconstructor(opt, "cuda")
+    item = dict(TrainDataset(dataclasses.replace(opt_model, dataroot=root),
+                             load_mesh=False)[2])
+    item["img_512"] = item["img_512"][None]
+    t0 = time.time()
+    try:
+        out = recon.gen_mesh(item, os.path.join(base, "bumpy.obj"), 256)
+        n_v = len(out["verts"])
+        if not np.isfinite(out["verts"]).all():
+            fail("[train] the trained model's mesh is not finite")
+    except RuntimeError as e:
+        if "empty mesh" not in str(e):
+            raise
+        n_v = 0
+    phase("train_mesh", json.dumps({
+        "netG_leaves_equal": n_g, "fine_mlp_leaves_moved": len(moved),
+        "gen_mesh_256_s": round(time.time() - t0, 2), "verts": n_v}))
+    del recon
+    shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def device_info(torch) -> dict:

@@ -17,6 +17,10 @@ evaluates the octree field, as in the JAX package), unless
 ``--demo-trained`` is the hermetic demo with a real field: it loads the
 committed trained-tiny two-level checkpoint (``assets/bench_tiny``),
 regenerates its synthetic capsule subject and reconstructs it.
+``--demo-sphere`` is the smoke demo: it writes a one-subject training tree
+(a sphere at 256^2, ``<results_path>/_demo_data``), reads it with
+``TrainDataset`` and reconstructs it with a freshly initialised model of
+the command line's widths (seed 0).
 
 use_color: 0 = fd-normal colours (``gen_mesh``), 1 = image colours, 2 =
 image colours + largest-component cleanup + back inpainting.
@@ -57,13 +61,39 @@ class _CapsuleDemo:
                 "calib": calib}
 
 
+def _demo_sphere(opt, device):
+    """``(Reconstructor, dataset)`` of ``--demo-sphere``."""
+    import dataclasses
+
+    import torch
+
+    from ..data.datasets import TrainDataset
+    from ..data.synthetic import generate_synthetic_dataset
+    from ..models.blocks import init_flax
+    from ..models.multires import MultiResPIFu
+    from ..recon.pipeline import Reconstructor
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(device)
+    root = os.path.join(opt.results_path, "_demo_data")
+    if not os.path.isdir(os.path.join(root, "gen")):
+        generate_synthetic_dataset(root, subjects=("sphere",), size=256,
+                                   load_size=opt.load_size)
+    dopt = dataclasses.replace(opt, dataroot=root, load_size_big=256,
+                               load_size_local=256)
+    dataset = TrainDataset(dopt, load_mesh=False)
+    model = MultiResPIFu(opt.netMR, opt.netG, device=dev)
+    init_flax(model, torch.Generator().manual_seed(0))
+    return Reconstructor(model, opt, device=dev), dataset
+
+
 def main(argv=None):
     from ..utils.options import parse_options
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    if "--demo-sphere" in argv:
-        raise SystemExit("--demo-sphere needs the training dataset reader, "
-                         "which is not ported yet; use --demo-trained")
+    demo_sphere = "--demo-sphere" in argv
+    if demo_sphere:
+        argv.remove("--demo-sphere")
     demo_trained = "--demo-trained" in argv
     if demo_trained:
         argv.remove("--demo-trained")
@@ -71,7 +101,9 @@ def main(argv=None):
     if opt.use_color not in (0, 1, 2):
         raise SystemExit(f"unknown use_color {opt.use_color}")
 
-    if demo_trained:
+    if demo_sphere:
+        recon, dataset = _demo_sphere(opt, device)
+    elif demo_trained:
         if not opt.load_netMR_checkpoint_path:
             opt.load_netMR_checkpoint_path = os.path.join(
                 _ASSETS, "bench_tiny", "ckpt")

@@ -1,1 +1,3 @@
-"""Synthetic subjects (NumPy only)."""
+"""Data, NumPy only: the inference reader and its preprocessing, the
+training reader (``datasets``, with ``sampling`` and ``containment``), the
+prefetcher, and the synthetic subjects and training trees."""

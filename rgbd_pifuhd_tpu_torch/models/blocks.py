@@ -4,19 +4,44 @@ auto-numbered ``_NormReLU_<k>`` submodules in creation order.
 
 Dtypes follow flax: a conv with a ``dtype`` casts input, kernel and bias to
 it and returns it; a conv without one computes in f32.  GroupNorm and
-BatchNorm (f32 params) compute and return f32.  BatchNorm is inference
-only: it normalises with its running statistics, as flax ``BatchNorm``
-with ``use_running_average=True`` (the buffers ``mean`` / ``var`` are the
-flax ``batch_stats``).
+BatchNorm (f32 params) compute and return f32.
+
+``train`` is threaded through every ``forward`` as flax threads it through
+``__call__``: BatchNorm with ``train=False`` normalises with its running
+statistics (flax ``use_running_average=True``; the buffers ``mean`` /
+``var`` are the flax ``batch_stats``), with ``train=True`` with the batch's
+and updates the buffers as flax ``BatchNorm(momentum=0.9)`` does: ``ra =
+0.9 ra + 0.1 batch``, the variance biased (``E[x^2] - E[x]^2``).
+``HGFilter(remat=True)`` recomputes each hourglass in the backward pass
+(``torch.utils.checkpoint``), without updating the statistics twice.
+
+``init_flax`` draws the initial parameters as flax's initialisers do: every
+conv / dense / transposed-conv weight from N(0, 0.02), biases 0, norm
+scales 1, running statistics 0 / 1.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.resize import avg_pool2d, upsample2x_bicubic
+
+_STATS_FROZEN = [False]     # set while a checkpointed hourglass recomputes
+
+
+@contextlib.contextmanager
+def _stats_frozen(frozen: bool):
+    prev = _STATS_FROZEN[0]
+    _STATS_FROZEN[0] = frozen
+    try:
+        yield
+    finally:
+        _STATS_FROZEN[0] = prev
 
 
 class Conv(nn.Module):
@@ -54,7 +79,8 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels, device=device))
         self.bias = nn.Parameter(torch.zeros(channels, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        del train
         G = self.num_groups
         C = x.shape[-1]
         xg = x.float().reshape(x.shape[0], -1, G, C // G)
@@ -67,9 +93,12 @@ class GroupNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``BatchNorm(use_running_average=True)`` on ``[..., C]``:
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in f32, with the
-    running statistics."""
+    """flax ``BatchNorm(momentum=0.9)`` on ``[..., C]``: ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias`` in f32, with the running statistics
+    (``train=False``) or the batch's over every axis but the last
+    (``train=True``, which also updates the running ones)."""
+
+    MOMENTUM = 0.9          # flax BatchNorm(momentum=0.9) of the JAX models
 
     def __init__(self, channels: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -84,9 +113,21 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(self.var.double() + self.eps) * self.weight.double()
         return mul, self.bias.double() - self.mean.double() * mul
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.var + self.eps) * self.weight
-        return (x.float() - self.mean) * mul + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x.float()
+        if not train:
+            mean, var = self.mean, self.var
+        else:
+            flat = x.reshape(-1, x.shape[-1])
+            mean = flat.mean(0)
+            var = torch.clamp((flat * flat).mean(0) - mean * mean, min=0.0)
+            if not _STATS_FROZEN[0]:
+                m = self.MOMENTUM
+                with torch.no_grad():
+                    self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                    self.var.copy_(m * self.var + (1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 def make_norm(norm: str, channels: int, device=None) -> nn.Module:
@@ -104,8 +145,8 @@ class _NormReLU(nn.Module):
         super().__init__()
         self.n = make_norm(norm, channels, device)
 
-    def forward(self, x):
-        return F.relu(self.n(x))
+    def forward(self, x, train: bool = False):
+        return F.relu(self.n(x, train))
 
 
 class ConvBlock(nn.Module):
@@ -130,12 +171,13 @@ class ConvBlock(nn.Module):
             self.down_conv = Conv(cin, cout, 1, bias=False, dtype=dtype,
                                   device=device)
 
-    def forward(self, x):
-        y1 = self.conv1(self._NormReLU_0(x))
-        y2 = self.conv2(self._NormReLU_1(y1))
-        y3 = self.conv3(self._NormReLU_2(y2))
+    def forward(self, x, train: bool = False):
+        y1 = self.conv1(self._NormReLU_0(x, train))
+        y2 = self.conv2(self._NormReLU_1(y1, train))
+        y3 = self.conv3(self._NormReLU_2(y2, train))
         out = torch.cat([y1, y2, y3], dim=-1)
-        res = self.down_conv(self._NormReLU_3(x)) if self.has_down else x
+        res = self.down_conv(self._NormReLU_3(x, train)) if self.has_down \
+            else x
         return out + res
 
 
@@ -153,11 +195,12 @@ class HourGlass(nn.Module):
             self.b2_plus = cb()
         self.b3 = cb()
 
-    def forward(self, x):
-        up1 = self.b1(x)
-        low1 = self.b2(avg_pool2d(x, 2, 2))
-        low2 = self.inner(low1) if self.depth > 1 else self.b2_plus(low1)
-        low3 = self.b3(low2)
+    def forward(self, x, train: bool = False):
+        up1 = self.b1(x, train)
+        low1 = self.b2(avg_pool2d(x, 2, 2), train)
+        low2 = self.inner(low1, train) if self.depth > 1 \
+            else self.b2_plus(low1, train)
+        low3 = self.b3(low2, train)
         return up1 + upsample2x_bicubic(low3)
 
 
@@ -168,15 +211,17 @@ class HGFilter(nn.Module):
     down_type (after the 7x7 stride-2 stem): ``ave_pool`` ConvBlock(128) +
     2x2 average pool; ``no_down`` ConvBlock(128); ``conv64`` ConvBlock(64) +
     a 3x3 stride-2 conv to 128; ``conv128`` ConvBlock(128) + the same
-    conv (both convs f32, with a bias, as flax builds them)."""
+    conv (both convs f32, with a bias, as flax builds them).  ``remat``
+    recomputes each hourglass in the backward pass."""
 
     def __init__(self, n_stack: int, depth: int, last_channels: int,
                  in_channels: int, norm: str = "group",
-                 down_type: str = "ave_pool", dtype=None, device=None):
+                 down_type: str = "ave_pool", dtype=None, remat: bool = False,
+                 device=None):
         super().__init__()
         if down_type not in ("ave_pool", "no_down", "conv64", "conv128"):
             raise ValueError(f"unknown down_type {down_type!r}")
-        self.n_stack, self.down_type = n_stack, down_type
+        self.n_stack, self.down_type, self.remat = n_stack, down_type, remat
         self.conv1 = Conv(in_channels, 64, 7, stride=2, padding=3,
                           dtype=dtype, device=device)
         self._NormReLU_0 = _NormReLU(norm, 64, device)
@@ -201,25 +246,62 @@ class HGFilter(nn.Module):
                 setattr(self, f"al{i}", Conv(last_channels, 256, 1,
                                              device=device))
 
-    def forward(self, x):
-        x = self._NormReLU_0(self.conv1(x))
-        x = self.conv2(x)
+    def _hourglass(self, i: int, x, train: bool):
+        hg = getattr(self, f"m{i}")
+        if not (self.remat and torch.is_grad_enabled() and x.requires_grad):
+            return hg(x, train)
+        calls = [0]
+
+        def run(t):
+            calls[0] += 1     # the backward's recomputation: stats frozen
+            with _stats_frozen(calls[0] > 1):
+                return hg(t, train)
+
+        return checkpoint(run, x, use_reentrant=False)
+
+    def forward(self, x, train: bool = False):
+        x = self._NormReLU_0(self.conv1(x), train)
+        x = self.conv2(x, train)
         if self.down_type == "ave_pool":
             x = avg_pool2d(x, 2, 2)
         elif self.down_type != "no_down":
             x = self.down_conv2(x)
         normx = x
-        x = self.conv4(self.conv3(x))
+        x = self.conv4(self.conv3(x, train), train)
         previous = x
         outputs = []
         for i in range(self.n_stack):
-            hg = getattr(self, f"m{i}")(previous)
-            ll = getattr(self, f"top_m_{i}")(hg)
+            hg = self._hourglass(i, previous, train)
+            ll = getattr(self, f"top_m_{i}")(hg, train)
             ll = getattr(self, f"_NormReLU_{i + 1}")(
-                getattr(self, f"conv_last{i}")(ll))
+                getattr(self, f"conv_last{i}")(ll), train)
             out = getattr(self, f"l{i}")(ll)
             outputs.append(out)
             if i < self.n_stack - 1:
                 previous = (previous + getattr(self, f"bl{i}")(ll)
                             + getattr(self, f"al{i}")(out))
         return outputs, normx
+
+
+def init_flax(model: nn.Module, generator: torch.Generator) -> None:
+    """Re-draw every parameter of ``model`` as flax's initialisers draw
+    them: conv, dense and transposed-conv weights N(0, 0.02) (the JAX
+    package's ``conv_init``), biases 0, norm scales 1, running statistics
+    0 / 1.  The draws come from ``generator`` (a CPU generator) in module
+    order."""
+    from .pix2pix import ConvTranspose
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (Conv, nn.Linear, ConvTranspose)):
+                w = torch.empty(m.weight.shape).normal_(0.0, 0.02,
+                                                        generator=generator)
+                m.weight.copy_(w)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (GroupNorm, BatchNorm)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                if isinstance(m, BatchNorm):
+                    m.mean.zero_()
+                    m.var.fill_(1.0)

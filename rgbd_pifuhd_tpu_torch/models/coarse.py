@@ -2,6 +2,12 @@
 ``models/coarse.py``): ``filter`` encodes, ``query`` evaluates occupancy
 through the fused field query, one call per image and hourglass stack.
 
+Training (``train=True``, the objective in ``forward``) queries through the
+port's torch modules instead — ``geom.index`` and ``PointMLP.forward`` on
+the tensors' own device — which is what the JAX trainers differentiate
+(their XLA ``PointMLP``; no Pallas kernel is on the training path).  The
+normal nets run without gradient (``stop_gradient`` in the JAX package).
+
 Layouts: images ``[B, H, W, C]``, points ``[B, N, 3]``, calib
 ``[B, 3|4, 4]``.
 """
@@ -15,6 +21,7 @@ import torch.nn as nn
 
 from ..ops import geometry as geom
 from ..ops.fused_mlp import fused_point_mlp
+from ..ops.losses import custom_bce, mse
 from ..ops.fused_query import fused_gather_mlp, gather_concat
 from ..utils.device import resolve_device, torch_dtype
 from ..utils.options import PIFuLevelConfig
@@ -58,12 +65,19 @@ def _level_kernels(mlp: PointMLP, f: torch.Tensor, u: torch.Tensor,
                             merge_layer=merge_layer)
 
 
+def query_plain(mlp: PointMLP, feat: torch.Tensor, uv: torch.Tensor,
+                extra: torch.Tensor, train: bool = False):
+    """Gather + MLP through the port's torch modules (``geom.index`` and
+    ``PointMLP.forward``, flax's steps) over a whole batch: the training
+    query (batch norm over all ``B * N`` points, as flax) and the
+    backward's recomputation."""
+    return mlp(torch.cat([geom.index(feat, uv), extra], dim=-1), train)
+
+
 def _level_plain(mlp: PointMLP, f: torch.Tensor, u: torch.Tensor,
                  e: torch.Tensor):
-    """The same level through the port's torch modules (``geom.index`` and
-    ``PointMLP.forward``, flax's steps): ``(pred [N, 1], phi)``."""
-    x = torch.cat([geom.index(f[None], u[None]), e[None]], dim=-1)
-    pred, phi = mlp(x)
+    """One batch item of ``query_plain``: ``(pred [N, 1], phi)``."""
+    pred, phi = query_plain(mlp, f[None], u[None], e[None])
     return pred[0], None if phi is None else phi[0]
 
 
@@ -76,8 +90,9 @@ class _QueryLevel(torch.autograd.Function):
     not a Pallas kernel); it returns the gradients of ``uv`` and ``extra``,
     the two inputs that carry the points (the coarse level's depth feature,
     the fine level's ``phi``), with ``pred``'s and ``phi``'s incoming
-    gradients.  Gradients of the feature map or the MLP weights belong to
-    training and are refused."""
+    gradients.  Gradients of the feature map or the MLP weights are
+    refused: training queries with ``train=True``, through the torch
+    modules."""
 
     @staticmethod
     def forward(ctx, feat, uv, extra, mlp, merge_layer):
@@ -93,9 +108,10 @@ class _QueryLevel(torch.autograd.Function):
                                           for p in mlp.parameters()):
             raise RuntimeError(
                 "query_mlp: gradients of the feature map or the MLP weights "
-                "are training, which this port does not do yet (the "
-                "training slice); only the points' gradient is computed "
-                "(freeze the weights: model.requires_grad_(False))")
+                "are training's, which queries with train=True (the torch "
+                "modules, not the kernels); here only the points' gradient "
+                "is computed (freeze the weights: "
+                "model.requires_grad_(False))")
         feat, uv, extra = ctx.saved_tensors
         with torch.enable_grad():
             u = uv.detach().requires_grad_()
@@ -137,7 +153,7 @@ class CoarsePIFu(nn.Module):
         dt = level_dtype(c)
         self.image_filter = HGFilter(
             c.num_stack, c.hg_depth, c.hg_dim, c.in_channels, c.norm,
-            c.hg_down, dtype=dt, device=dev)
+            c.hg_down, dtype=dt, remat=c.remat, device=dev)
         self.mlp = PointMLP(c.mlp_dim, c.merge_layer, c.mlp_res_layers,
                             c.mlp_norm, "sigmoid", dtype=dt, device=dev)
         nin = c.normal_input_channels
@@ -150,26 +166,30 @@ class CoarsePIFu(nn.Module):
                                         c.nml_n_downsampling,
                                         c.nml_n_blocks, device=dev)
 
-    def filter(self, images: torch.Tensor,
+    def filter(self, images: torch.Tensor, train: bool = False,
                last_only: bool = False) -> CoarseFeatures:
         c = self.cfg
         nmls = []
         nml_front = nml_back = None
-        if c.use_front_normal:
-            nml_front = self.netF(images)
-            nmls.append(nml_front)
-        if c.use_back_normal:
-            nml_back = self.netB(images)
-            nmls.append(nml_back)
+        with torch.no_grad():       # the normal nets get no gradient
+            if c.use_front_normal:
+                nml_front = self.netF(images)
+                nmls.append(nml_front)
+            if c.use_back_normal:
+                nml_back = self.netB(images)
+                nmls.append(nml_back)
         if nmls:
             images = torch.cat([images] + nmls, dim=-1)
-        outs, normx = self.image_filter(images)
+        outs, normx = self.image_filter(images, train)
         if last_only:
             outs = outs[-1:]
         return CoarseFeatures(torch.stack(outs), normx, nml_front, nml_back)
 
     def query(self, feats: CoarseFeatures, points: torch.Tensor,
-              calibs: torch.Tensor) -> CoarseQueryOut:
+              calibs: torch.Tensor, train: bool = False) -> CoarseQueryOut:
+        """Occupancy of every stack (masked to the [-1, 1]^3 box) and the
+        last stack's ``phi``; ``train`` takes the torch modules (batch
+        statistics for batch norm), otherwise the kernels."""
         c = self.cfg
         xyz = geom.PROJECTIONS[c.projection_mode](points, calibs)
         mask = geom.in_bounds_mask(xyz, dims=3)
@@ -178,8 +198,12 @@ class CoarsePIFu(nn.Module):
         preds = []
         phi = None
         for s in range(feats.im_feats.shape[0]):
-            pred, phi = query_mlp(self.mlp, feats.im_feats[s], xy, sp_feat,
-                                  self.mlp.merge)
+            if train:
+                pred, phi = query_plain(self.mlp, feats.im_feats[s], xy,
+                                        sp_feat, True)
+            else:
+                pred, phi = query_mlp(self.mlp, feats.im_feats[s], xy,
+                                      sp_feat, self.mlp.merge)
             preds.append(mask * pred)
         return CoarseQueryOut(torch.stack(preds), phi, mask)
 
@@ -206,3 +230,26 @@ class CoarsePIFu(nn.Module):
         nml = -(pred[..., 1:] - pred[..., :1])
         norm = torch.linalg.norm(nml, dim=-1, keepdim=True)
         return nml / torch.clamp(norm, min=1e-8)
+
+    def get_error(self, out: CoarseQueryOut, labels: torch.Tensor,
+                  gamma: float, loss_type: str = "bce") -> torch.Tensor:
+        """Mean over the stacks of the occupancy loss against the labels
+        masked to the box."""
+        labels = out.mask * labels
+        gamma_b = torch.full((labels.shape[0],), float(gamma),
+                             dtype=labels.dtype, device=labels.device)
+        total = 0.0
+        for s in range(out.preds.shape[0]):
+            if loss_type == "bce":
+                total = total + custom_bce(out.preds[s], labels, gamma_b)
+            else:
+                total = total + mse(out.preds[s], labels)
+        return total / out.preds.shape[0]
+
+    def forward(self, images, points, calibs, labels, gamma=0.5,
+                train: bool = True):
+        """filter -> query -> loss: the coarse pretraining objective;
+        returns ``(err, query out)``."""
+        feats = self.filter(images, train=train)
+        out = self.query(feats, points, calibs, train=train)
+        return self.get_error(out, labels, gamma), out

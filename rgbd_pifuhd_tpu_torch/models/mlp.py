@@ -11,9 +11,11 @@ BatchNorm (f32 params) promote to f32; leaky runs in the dtype it is given,
 with the slope 0.01 rounded to that dtype (bf16 for a norm-free bf16
 chain).
 
-Batch norm is inference only (running statistics): a per-channel affine.
+With running statistics (inference), batch norm is a per-channel affine:
 ``packed()`` folds it into the preceding Dense layer's weight and bias, so
-the kernels see a norm-free chain; ``forward`` applies it as flax does.
+the kernels see a norm-free chain; ``forward`` applies it as flax does, and
+with ``train=True`` normalises with the batch's statistics and updates the
+running ones (training runs ``forward``, never the kernels).
 In bf16 the folded chain rounds in other places (the folded weights, and
 leaky in bf16 where flax's runs in f32 after the norm).
 """
@@ -74,7 +76,9 @@ class PointMLP(nn.Module):
         slope = torch.tensor(0.01, dtype=y.dtype, device=y.device)
         return torch.where(y >= 0, y, (slope.float() * y.float()).to(y.dtype))
 
-    def forward(self, feature: torch.Tensor):
+    def forward(self, feature: torch.Tensor, train: bool = False):
+        if train:               # the weights are about to change
+            self._packed.clear()
         y = feature
         phi = None
         for i in range(self.n_layers):
@@ -83,7 +87,7 @@ class PointMLP(nn.Module):
             y = self._dense(i, inp)
             if i != self.n_layers - 1:
                 if self.norm != "none":
-                    y = getattr(self, f"norm{i}")(y)
+                    y = getattr(self, f"norm{i}")(y, train)
                 y = self._leaky(y)
             if i == self.merge:
                 phi = y

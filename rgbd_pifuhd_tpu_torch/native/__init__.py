@@ -1,9 +1,10 @@
 """Native (C++) host kernels, built with g++ into ``_build/`` on first use.
 
-``marching.cc`` (marching cubes / tetrahedra over dense and sparse fields)
-and ``meshio.cc`` (sparse-volume densify, affine transform, u16 vertex
-quantisation, OBJ writer) are copies of the JAX package's sources.  A failed build raises: this port has
-no NumPy fallback for them.
+``marching.cc`` (marching cubes / tetrahedra over dense and sparse fields),
+``meshio.cc`` (sparse-volume densify, affine transform, u16 vertex
+quantisation, OBJ writer) and ``raster.cc`` (the orthographic z-buffer
+rasteriser of the synthetic training trees) are copies of the JAX package's
+sources.  A failed build raises: this port has no NumPy fallback for them.
 """
 
 from __future__ import annotations
@@ -37,9 +38,10 @@ def _build_lib(name: str, source: str) -> str:
 
 
 def build_all() -> None:
-    """Build both libraries (``chip_smoke.py`` times this)."""
+    """Build every library (``chip_smoke.py`` times this)."""
     load_marching()
     load_meshio()
+    load_raster()
 
 
 def load_marching():
@@ -118,4 +120,26 @@ def load_meshio():
         lib.obj_finish.argtypes = [i64, ctypes.POINTER(ctypes.c_char), i64]
         lib.meshio_free.argtypes = [ctypes.c_void_p]
         _CACHE["meshio"] = lib
+        return lib
+
+
+def load_raster():
+    """ctypes handle to the orthographic rasteriser (raises on failure)."""
+    with _LOCK:
+        if "raster" in _CACHE:
+            return _CACHE["raster"]
+        lib = ctypes.CDLL(_build_lib("raster", "raster.cc"))
+        dp = ctypes.POINTER(ctypes.c_double)
+        fp = ctypes.POINTER(ctypes.c_float)
+        ip = ctypes.POINTER(ctypes.c_int32)
+        i64 = ctypes.c_int64
+        # px, py, pz, V, vn, vshade, shade_ch, faces, F, size, albedo,
+        # light, uvs, face_uvs, tex, th, tw, face_albedo, zbuf, nbuf, rgb,
+        # mask, threads
+        lib.raster_ortho.restype = ctypes.c_int
+        lib.raster_ortho.argtypes = [
+            dp, dp, dp, i64, dp, dp, ctypes.c_int, ip, i64, i64, dp, dp, dp,
+            ip, fp, i64, i64, dp, fp, fp, fp,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int]
+        _CACHE["raster"] = lib
         return lib

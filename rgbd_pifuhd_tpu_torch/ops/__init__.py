@@ -1,2 +1,2 @@
-"""Geometry, resize, and the fused field query (CUDA kernel + plain
-PyTorch version)."""
+"""Geometry, resize, losses, and the fused field query and point MLP
+(CUDA kernels + plain PyTorch versions)."""

@@ -1,1 +1,2 @@
-"""Options, checkpoint reading and device selection."""
+"""Options, checkpoints (read and written), device selection, image
+codecs and OpenCV's image operations in NumPy, training logs."""

@@ -21,6 +21,12 @@ chroma sampling, raise ``ValueError`` naming the limit.
 
 Huffman decoding is a Python loop over the symbols (a 16-bit lookup table
 per code); everything after it runs on whole NumPy arrays.
+
+``encode`` / ``write_jpeg`` write a baseline 4:2:0 file with OpenCV's
+defaults, byte for byte what ``cv2.imwrite`` writes (libjpeg-turbo's
+fixed-point colour conversion and downsampling, islow forward DCT,
+reciprocal quantiser, standard Huffman tables, JFIF header), whole-array
+NumPy throughout.
 """
 
 from __future__ import annotations
@@ -493,3 +499,293 @@ def read_rgb8(path: str) -> np.ndarray:
             break
         pos += 2 + ln
     return _orient(img, o) if o in range(2, 9) else img
+
+
+
+# ------------------------------------------------------------------ encoder
+# ``encode`` writes what ``cv2.imwrite(path, img)`` writes for a colour
+# image with OpenCV's defaults: baseline, quality 95, 4:2:0, libjpeg's
+# standard Huffman tables (no optimisation), a JFIF 1.01 header, no restart
+# markers.
+
+_STD_LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_STD_CHROMA_Q = np.full(64, 99)
+_STD_CHROMA_Q[:4], _STD_CHROMA_Q[8:12] = [17, 18, 24, 47], [18, 21, 26, 66]
+_STD_CHROMA_Q[16:19], _STD_CHROMA_Q[24:26] = [24, 26, 56], [47, 66]
+
+# (BITS: codes per length 1..16, HUFFVAL) of libjpeg's std_huff_tables
+# (JPEG Annex K.3), by (class, table): DC luma, AC luma, DC and AC chroma
+_STD_HUFF = {
+    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0],
+             bytes(range(12))),
+    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D],
+             bytes.fromhex(
+                 "01020300041105122131410613516107227114328191a108"
+                 "2342b1c11552d1f02433627282090a161718191a25262728"
+                 "292a3435363738393a434445464748494a53545556575859"
+                 "5a636465666768696a737475767778797a83848586878889"
+                 "8a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6"
+                 "b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2"
+                 "e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")),
+    (0, 1): ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0],
+             bytes(range(12))),
+    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77],
+             bytes.fromhex(
+                 "000102031104052131061241510761711322328108144291"
+                 "a1b1c109233352f0156272d10a162434e125f11718191a26"
+                 "2728292a35363738393a434445464748494a535455565758"
+                 "595a636465666768696a737475767778797a828384858687"
+                 "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4"
+                 "b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9da"
+                 "e2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")),
+}
+
+
+def _quant_table(base: np.ndarray, quality: int) -> np.ndarray:
+    """``jpeg_add_quant_table`` with ``force_baseline``, natural order."""
+    scale = 5000 // quality if quality < 50 else 200 - quality * 2
+    return np.clip((base * scale + 50) // 100, 1, 255).astype(np.int64)
+
+
+def _huff_codes(bits, values) -> tuple:
+    """Canonical codes by symbol: ``(code [256], length [256])``."""
+    code = np.zeros(256, np.int64)
+    size = np.zeros(256, np.int64)
+    c, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            code[values[k]], size[values[k]] = c, length
+            c += 1
+            k += 1
+        c <<= 1
+    return code, size
+
+
+def _fdct_1d(d, shift: int, first: bool):
+    """One pass of ``jpeg_fdct_islow`` (jfdctint.c) over eight int64
+    arrays: the row pass (``first``) keeps PASS1_BITS extra bits, the
+    column pass removes them."""
+    tmp0, tmp7 = d[0] + d[7], d[0] - d[7]
+    tmp1, tmp6 = d[1] + d[6], d[1] - d[6]
+    tmp2, tmp5 = d[2] + d[5], d[2] - d[5]
+    tmp3, tmp4 = d[3] + d[4], d[3] - d[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    out = [None] * 8
+    if first:
+        out[0] = (tmp10 + tmp11) << _PASS1_BITS
+        out[4] = (tmp10 - tmp11) << _PASS1_BITS
+    else:
+        out[0] = _descale(tmp10 + tmp11, _PASS1_BITS)
+        out[4] = _descale(tmp10 - tmp11, _PASS1_BITS)
+    z1 = (tmp12 + tmp13) * _F0541
+    out[2] = _descale(z1 + tmp13 * _F0765, shift)
+    out[6] = _descale(z1 + tmp12 * -_F1847, shift)
+    z1, z2 = tmp4 + tmp7, tmp5 + tmp6
+    z3, z4 = tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * _F1175
+    tmp4 = tmp4 * _F0298
+    tmp5 = tmp5 * _F2053
+    tmp6 = tmp6 * _F3072
+    tmp7 = tmp7 * _F1501
+    z1 = z1 * -_F0899
+    z2 = z2 * -_F2562
+    z3 = z3 * -_F1961 + z5
+    z4 = z4 * -_F0390 + z5
+    out[7] = _descale(tmp4 + z1 + z3, shift)
+    out[5] = _descale(tmp5 + z2 + z4, shift)
+    out[3] = _descale(tmp6 + z2 + z3, shift)
+    out[1] = _descale(tmp7 + z1 + z4, shift)
+    return out
+
+
+def _fdct_islow(blocks: np.ndarray) -> np.ndarray:
+    """``[N, 8, 8]`` samples minus 128 -> ``[N, 64]`` coefficients (natural
+    order) scaled by 8, exactly as ``jpeg_fdct_islow``."""
+    b = blocks.astype(np.int64)
+    ws = np.stack(_fdct_1d([b[:, :, k] for k in range(8)],
+                           _CONST_BITS - _PASS1_BITS, True), axis=2)
+    out = np.stack(_fdct_1d([ws[:, k, :] for k in range(8)],
+                            _CONST_BITS + _PASS1_BITS, False), axis=1)
+    return out.reshape(-1, 64)
+
+
+def _quantize(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """libjpeg-turbo's ``quantize``: |x| divided by ``8 q`` through the
+    16-bit reciprocal of ``compute_reciprocal``, the sign restored."""
+    d = q * 8
+    r = 16 + np.floor(np.log2(d)).astype(np.int64)
+    fq, fr = (np.int64(1) << r) // d, (np.int64(1) << r) % d
+    c = d // 2
+    pow2 = fr == 0
+    c = np.where(~pow2 & (fr <= d // 2), c + 1, c)
+    fq = np.where(pow2, fq >> 1, np.where(fr > d // 2, fq + 1, fq))
+    r = np.where(pow2, r - 1, r)
+    v = ((np.abs(coef) + c) * fq) >> r
+    return np.where(coef < 0, -v, v)
+
+
+def _rgb_to_ycc(rgb: np.ndarray):
+    """``rgb_ycc_convert`` with libjpeg's 16-bit fixed-point tables."""
+    def fix(v):
+        return int(v * (1 << 16) + 0.5)
+
+    half, off = 1 << 15, 128 << 16
+    r, g, b = (rgb[..., k].astype(np.int64) for k in range(3))
+    y = (fix(0.29900) * r + fix(0.58700) * g + fix(0.11400) * b + half) >> 16
+    cb = (-fix(0.16874) * r - fix(0.33126) * g + fix(0.5) * b + off + half
+          - 1) >> 16
+    cr = (fix(0.5) * r - fix(0.41869) * g - fix(0.08131) * b + off + half
+          - 1) >> 16
+    return y, cb, cr
+
+
+def _pad_edges(x: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Replicate the last row and column out to ``h`` x ``w``."""
+    return np.pad(x, ((0, h - x.shape[0]), (0, w - x.shape[1])), mode="edge")
+
+
+def _h2v2_downsample(x: np.ndarray, out_w: int) -> np.ndarray:
+    """``h2v2_downsample``: 2x2 sums + the alternating bias 1, 2, >> 2."""
+    x = _pad_edges(x, x.shape[0], out_w * 2)
+    s = x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2]
+    return (s + np.tile([1, 2], out_w)[:out_w]) >> 2
+
+
+def _nbits(x: np.ndarray) -> np.ndarray:
+    """Magnitude category: bits of |x| (0 for 0)."""
+    a = np.abs(x)
+    n = np.zeros(a.shape, np.int64)
+    while (a > 0).any():
+        n += a > 0
+        a = a >> 1
+    return n
+
+
+def _entropy_code(zz: np.ndarray, tab: np.ndarray, codes: dict) -> bytes:
+    """Huffman-code blocks ``zz [n, 64]`` (zigzag order, DC already the
+    difference to its component's previous DC), block ``i`` with the
+    tables of ``tab[i]``, into stuffed bytes padded with 1-bits."""
+    n = len(zz)
+    vals, lens, keys = [], [], []
+
+    def emit(v, ln, blk, pos):
+        vals.append(v)
+        lens.append(ln)
+        keys.append(blk * 256 + pos)
+
+    dcc = np.stack([codes[(0, t)][0] for t in (0, 1)])
+    dcs = np.stack([codes[(0, t)][1] for t in (0, 1)])
+    acc = np.stack([codes[(1, t)][0] for t in (0, 1)])
+    acs = np.stack([codes[(1, t)][1] for t in (0, 1)])
+    blk = np.arange(n)
+    diff = zz[:, 0]
+    nb = _nbits(diff)
+    emit((dcc[tab, nb] << nb) | (np.where(diff < 0, diff - 1, diff)
+                                 & ((1 << nb) - 1)),
+         dcs[tab, nb] + nb, blk, 0)
+    bi, ki = np.nonzero(zz[:, 1:])
+    k = ki + 1
+    prev = np.concatenate([[0], k[:-1]])
+    prev[np.concatenate([[True], bi[1:] != bi[:-1]])] = 0
+    run = k - prev - 1
+    v = zz[bi, k]
+    nb = _nbits(v)
+    t = tab[bi]
+    sym = ((run & 15) << 4) | nb
+    emit((acc[t, sym] << nb) | (np.where(v < 0, v - 1, v) & ((1 << nb) - 1)),
+         acs[t, sym] + nb, bi, 2 * k)
+    nz = run // 16                          # ZRL: sixteen zeros each
+    zi = np.repeat(np.arange(len(bi)), nz)
+    emit(acc[t[zi], 0xF0], acs[t[zi], 0xF0], bi[zi], 2 * k[zi] - 1)
+    last = np.zeros(n, np.int64)
+    np.maximum.at(last, bi, k)
+    eob = np.nonzero(last < 63)[0]
+    emit(acc[tab[eob], 0x00], acs[tab[eob], 0x00], eob, 255)
+    # ZRLs of one coefficient share its key - 1: stable sort keeps them
+    # in order; every token left-aligned in 32 bits, then cut to its length
+    perm = np.argsort(np.concatenate(keys), kind="stable")
+    vals = np.concatenate(vals)[perm]
+    lens = np.concatenate(lens)[perm]
+    words = (vals << (32 - lens)).astype(">u4")
+    bits = np.unpackbits(words.view(np.uint8)).reshape(-1, 32)
+    bits = bits[np.arange(32)[None, :] < lens[:, None]]
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.uint8)])
+    data = np.packbits(bits)
+    return np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0).tobytes()
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+
+def encode(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """``[H, W, 3]`` uint8 RGB -> a baseline 4:2:0 JFIF file's bytes, as
+    ``cv2.imwrite`` writes them through libjpeg-turbo: fixed-point colour
+    conversion and downsampling, the islow forward DCT, the reciprocal
+    quantiser, the standard Huffman tables."""
+    a = np.asarray(rgb)
+    if a.dtype != np.uint8 or a.ndim != 3 or a.shape[2] != 3:
+        raise ValueError(f"encode takes uint8 [H, W, 3], got {a.dtype} "
+                         f"{a.shape}")
+    h, w = a.shape[:2]
+    mcux, mcuy = _ceil(w, 16), _ceil(h, 16)
+    qy = _quant_table(_STD_LUMA_Q, quality)
+    qc = _quant_table(_STD_CHROMA_Q, quality)
+    y, cb, cr = _rgb_to_ycc(a)
+    # rows padded to the row group (2) before downsampling, every plane
+    # then to whole blocks by replication (jcprepct.c, jcsample.c)
+    planes = [(y, 2, qy)] + [
+        (_h2v2_downsample(_pad_edges(c, h + h % 2, w),
+                          _ceil(_ceil(w, 2), 8) * 8), 1, qc) for c in (cb, cr)]
+    coefs = []
+    for plane, s, q in planes:
+        bh, bw = _ceil(plane.shape[0], 8), _ceil(plane.shape[1], 8)
+        p = _pad_edges(plane, bh * 8, bw * 8) - 128
+        blk = p.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8)
+        qz = _quantize(_fdct_islow(blk), q).reshape(bh, bw, 64)
+        # blocks past the component's edge inside the last MCU are dummy
+        # blocks: zero AC and the DC of the MCU's block before it in its
+        # row, or for a row of them, of the row above's last (compress_data)
+        full = np.zeros((mcuy * s, mcux * s, 64), np.int64)
+        full[:bh, :bw] = qz
+        for bx in range(bw, mcux * s):
+            full[:bh, bx, 0] = full[:bh, bx - 1, 0]
+        for by in range(bh, mcuy * s):
+            full[by, :, 0] = np.repeat(full[by - 1, s - 1::s, 0], s)
+        coefs.append(full)
+    yb = coefs[0].reshape(mcuy, 2, mcux, 2, 64).transpose(0, 2, 1, 3, 4)
+    mcu = np.concatenate([yb.reshape(mcuy, mcux, 4, 64),
+                          coefs[1][:, :, None], coefs[2][:, :, None]],
+                         axis=2).reshape(-1, 6, 64)    # Y00 Y01 Y10 Y11 Cb Cr
+    zz = mcu[:, :, _ZIGZAG]
+    for sl in (slice(0, 4), slice(4, 5), slice(5, 6)):  # DC prediction
+        dc = zz[:, sl, 0].reshape(-1)
+        zz[:, sl, 0] = np.diff(dc, prepend=0).reshape(-1, sl.stop - sl.start)
+    tab = np.tile([0, 0, 0, 0, 1, 1], len(zz))
+    codes = {key: _huff_codes(*tv) for key, tv in _STD_HUFF.items()}
+    out = [b"\xff\xd8",
+           _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for i, q in enumerate((qy, qc)):
+        out.append(_segment(0xDB, bytes([i]) + bytes(q[_ZIGZAG].tolist())))
+    out.append(_segment(0xC0, struct.pack(">BHHB", 8, h, w, 3) + bytes(
+        [1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    for cls, t in ((0, 0), (1, 0), (0, 1), (1, 1)):
+        bits, huffval = _STD_HUFF[(cls, t)]
+        out.append(_segment(0xC4, bytes([cls << 4 | t] + bits) + huffval))
+    out.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63,
+                                     0])))
+    out.append(_entropy_code(zz.reshape(-1, 64), tab, codes))
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
+def write_jpeg(path: str, rgb: np.ndarray, quality: int = 95) -> None:
+    """Write ``[H, W, 3]`` uint8 RGB as ``cv2.imwrite`` writes it (given the
+    same image in BGR order)."""
+    with open(path, "wb") as f:
+        f.write(encode(rgb, quality))

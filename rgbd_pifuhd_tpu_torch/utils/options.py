@@ -2,7 +2,7 @@
 
 Checkpoints embed ``Options.to_dict()``; ``from_dict`` restores them;
 ``parse_options`` is the command line of the entry points (the JAX package's
-flags plus ``--device``).
+flags plus ``--device`` and ``--freq_save``).
 """
 
 from __future__ import annotations
@@ -192,6 +192,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--learning_rate", type=float, default=1e-3)
     p.add_argument("--num_iter", type=int, default=30)
     p.add_argument("--num_epoch", type=int, default=1)
+    p.add_argument("--freq_save", type=int, default=5,
+                   help="write <name>_train_epoch_<N> when N % freq_save "
+                        "is 0 (latest is written every epoch)")
     p.add_argument("--resume_epoch", type=int, default=-1)
     p.add_argument("--continue_train", action="store_true")
     p.add_argument("--train_full_pifu", action="store_true")
@@ -327,6 +330,7 @@ def parse_options(argv: Sequence[str] | None = None,
         batch_size=args.batch_size, num_threads=args.num_threads,
         serial_batches=args.serial_batches, learning_rate=args.learning_rate,
         num_iter=args.num_iter, num_epoch=args.num_epoch,
+        freq_save=args.freq_save,
         resume_epoch=args.resume_epoch, continue_train=args.continue_train,
         train_full_pifu=args.train_full_pifu, schedule=tuple(args.schedule),
         gamma=args.gamma, occ_loss_type=args.occ_loss_type,
@@ -355,3 +359,18 @@ def parse_options(argv: Sequence[str] | None = None,
         aug_hue=args.aug_hue, aug_blur=args.aug_blur,
     )
     return (opt, args.device) if with_device else opt
+
+
+def print_options(opt: Options) -> str:
+    """Every field, with its default beside the ones that differ."""
+    default = Options()
+    lines = ["----------------- Options ---------------"]
+    for f in dataclasses.fields(Options):
+        v = getattr(opt, f.name)
+        dv = getattr(default, f.name)
+        comment = "" if v == dv else f"\t[default: {dv}]"
+        lines.append(f"{f.name:>25}: {v!s:<30}{comment}")
+    lines.append("----------------- End -------------------")
+    msg = "\n".join(lines)
+    print(msg, flush=True)
+    return msg

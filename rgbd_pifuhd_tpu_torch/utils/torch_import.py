@@ -290,6 +290,35 @@ def looks_like_multires(sd: SD) -> bool:
 
 
 # ------------------------------------------------------- channel reconcile
+def reconcile_input_channels(variables: dict, template: dict) -> dict:
+    """Zero-pad conv kernels (flax HWIO) of a flax tree along the
+    input-channel axis to the shapes of ``template`` (a tree of arrays of
+    the model's own shapes, e.g. ``params_to_flax(model)["params"]``): the
+    reference's 3-channel netF / netB stems and any narrower filter conv1.
+    Any other shape mismatch raises with the path."""
+    def walk(v: Any, t: Any, path: str) -> Any:
+        if isinstance(v, dict):
+            if not isinstance(t, dict):
+                raise ValueError(f"tree mismatch at {path}")
+            return {k: walk(v[k], t[k], f"{path}/{k}") if k in t else v[k]
+                    for k in v}
+        v = np.asarray(v)
+        ts = tuple(np.shape(t))
+        if tuple(v.shape) == ts:
+            return v
+        if (v.ndim == 4 and len(ts) == 4 and path.endswith("kernel")
+                and v.shape[:2] == ts[:2] and v.shape[3] == ts[3]
+                and v.shape[2] < ts[2]):
+            pad = np.zeros((v.shape[0], v.shape[1], ts[2] - v.shape[2],
+                            v.shape[3]), v.dtype)
+            return np.concatenate([v, pad], axis=2)
+        raise ValueError(
+            f"shape mismatch at {path}: checkpoint {tuple(v.shape)} vs "
+            f"model {ts} (only input-channel widening is implicit)")
+
+    return walk(variables, template, "")
+
+
 def reconcile_with_model(state_dict: dict, model) -> dict:
     """Zero-pad conv weights of ``state_dict`` (``params_from_flax``'s
     output) along the input-channel axis to the shapes of ``model``'s own

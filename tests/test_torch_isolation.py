@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX, flax, msgpack,
-cv2 nor PIL, nor any module of the JAX package, and its entry points never
-carry on quietly on the CPU.
+"""The PyTorch port stands alone: it imports neither JAX, flax, optax,
+msgpack, cv2 nor PIL, nor any module of the JAX package, and its entry
+points never carry on quietly on the CPU.
 
 Later port slices extend this file with their modules and entry points.
 """
@@ -24,6 +24,11 @@ SERVING_MODULES = ("cli.common", "cli.run_recon", "cli.serve", "data.readdata",
 # two-level / dense evaluators and marchers, CoarseReconstructor
 INFERENCE_MODULES = ("utils.jpeg", "utils.torch_import", "recon.grid",
                      "recon.marching", "recon.mesh", "recon.pipeline")
+# training and its data: readers, the synthetic tree, losses, the loop
+TRAINING_MODULES = ("train.trainers", "train.loop", "cli.run_train",
+                    "data.datasets", "data.sampling", "data.containment",
+                    "data.prefetch", "data.synthetic", "ops.losses",
+                    "utils.imgproc", "utils.logging", "utils.checkpoint")
 
 
 def _banned(name: str) -> bool:
@@ -67,12 +72,12 @@ def test_import_every_module_without_jax():
             importlib.import_module(n)
         bad = [m for m in sys.modules
                if (m == "rgbd_pifuhd_tpu" or m.startswith("rgbd_pifuhd_tpu.")
-                   or m.split(".")[0] in ("jax", "flax", "msgpack", "cv2",
-                                          "PIL"))
+                   or m.split(".")[0] in ("jax", "flax", "optax",
+                                          "msgpack", "cv2", "PIL"))
                and sys.modules[m] is not None]
         assert not bad, bad
-        assert len(names) >= 24, names
-        for n in {SERVING_MODULES + INFERENCE_MODULES!r}:
+        assert len(names) >= 35, names
+        for n in {SERVING_MODULES + INFERENCE_MODULES + TRAINING_MODULES!r}:
             assert pkg.__name__ + "." + n in names, n
         print(len(names))
     """)
@@ -237,3 +242,69 @@ def test_inference_paths_run_without_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0 and "ok" in r.stdout, r.stderr
+
+
+def test_training_runs_without_jax(tmp_path):
+    """With JAX, flax, optax, msgpack, cv2, PIL and the JAX package
+    blocked: the port writes a training tree (JPEG encoder, raster.cc),
+    reads it with the colour jitter and the crop on, takes two coarse
+    steps and one fine step on the CPU, and writes and reads back a
+    checkpoint."""
+    code = textwrap.dedent(f"""
+        import sys, os
+        for m in {BANNED!r}:
+            sys.modules[m] = None
+        sys.path.insert(0, {REPO!r})
+        os.chdir({str(tmp_path)!r})
+        from rgbd_pifuhd_tpu_torch.data.synthetic import (
+            generate_synthetic_dataset)
+        from rgbd_pifuhd_tpu_torch.data.datasets import TrainDataset
+        from rgbd_pifuhd_tpu_torch.train.loop import (pretrain_coarse,
+                                                      train_fine)
+        from rgbd_pifuhd_tpu_torch.utils import checkpoint as ck
+        from rgbd_pifuhd_tpu_torch.utils.options import (Options,
+                                                         PIFuLevelConfig)
+        generate_synthetic_dataset("tree", ("sphere", "bumpy"), size=64,
+                                   load_size=64)
+        g = PIFuLevelConfig(num_stack=1, hg_depth=1, hg_dim=8,
+                            mlp_dim=(9, 32, 16, 1), mlp_res_layers=(),
+                            mlp_norm="none", merge_layer=1,
+                            use_front_normal=False, use_back_normal=False,
+                            load_size=64)
+        l = PIFuLevelConfig(num_stack=1, hg_depth=1, hg_dim=4,
+                            hg_down="no_down", mlp_dim=(20, 16, 1),
+                            mlp_res_layers=(), mlp_norm="none",
+                            merge_layer=-1, use_front_normal=False,
+                            use_back_normal=False, load_size=64)
+        opt = Options(dataroot="tree", load_size=64, load_size_big=64,
+                      load_size_local=32, num_sample_inout=64, sigma=3.0,
+                      netG=g, netMR=l, checkpoints_path="ck", name="x",
+                      use_aug=True, aug_blur=1.0)
+        item = TrainDataset(opt, use_crop=True)[1]
+        assert item["img"].shape == (1, 512, 512, 6)
+        pretrain_coarse(opt, max_steps=2, device="cpu")
+        opt.load_netG_checkpoint_path = ck.latest_path("ck", "x_netG")
+        train_fine(opt, max_steps=1, device="cpu")
+        got = ck.load_checkpoint(ck.latest_path("ck", "x"), device="cpu")
+        assert "netG" in got["params"]["params"]
+        bad = [k for k in sys.modules
+               if (k == "rgbd_pifuhd_tpu" or k.startswith("rgbd_pifuhd_tpu."))
+               and sys.modules[k] is not None]
+        assert not bad, bad
+        print("ok")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and "ok" in r.stdout, r.stderr
+
+
+def test_training_entry_points_refuse_silent_cpu():
+    """The drivers default to ``cuda`` and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    from rgbd_pifuhd_tpu_torch.train.loop import pretrain_coarse, train_fine
+    from rgbd_pifuhd_tpu_torch.utils.options import Options
+
+    for fn in (pretrain_coarse, train_fine):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(Options(dataroot=os.path.join(REPO, "nonexistent")))

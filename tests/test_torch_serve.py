@@ -316,8 +316,10 @@ def test_run_recon_two_subject_directory(world, capsys):
     assert len(v) > 0 and c.shape == v.shape
     assert not os.path.exists(str(tmp / "batch" / "b" / "recon"
                                   / f"result_subject_{RES}.obj"))
-    with pytest.raises(SystemExit, match="demo-sphere"):
-        run_recon.main(["--demo-sphere", "--device", "cpu"])
+    if not torch.cuda.is_available():       # the demo runs on cuda too
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_recon.main(["--demo-sphere", "--results_path",
+                            str(tmp / "demo")])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run_recon.main(["--dataroot", world["req"],
