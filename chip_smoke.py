@@ -31,6 +31,15 @@ line each; any failure exits non-zero:
    subject (``tests/data/jpeg_subject``); the launch counts each process
    reports are checked against its field queries, the mesh files against
    the replies;
+6c. the rest of training on ``[train]``'s tree: ``[train_normals]``
+   (``cli.run_train --stage normals`` at the paper's widths, 1024^2),
+   ``[train_gan]`` (one GAN step card against CPU at tiny widths, then 5
+   steps at the paper's widths), ``[train_alternating]`` (one cycle of
+   the curriculum in-process, one epoch a stage), ``[train_eval]``
+   (``cli.run_train --stage eval`` in-process over ``[train]``'s fine
+   checkpoints, with the kernel launches it caused), and
+   ``[jpeg_progressive]`` (the committed progressive subject decoded
+   against its committed expected pixels, then served by ``cli.serve``);
 7. times (CUDA events) of both kernels and their plain versions at the
    full-width shapes, beside the card's bound for the same work, and of
    every launch of the coarse and the fine chain alone (``[time_layers]``)
@@ -182,9 +191,14 @@ def main() -> None:
 
     served = {} if kernels_only else served_path()
     mlp_launches = served.get("b", {}).get("fused_point_mlp", 0)
-    # ---- 6b. training: the port's own tree, card against CPU, the CLI
+    # ---- 6b. training: the port's own tree, card against CPU, the CLI;
+    # then the rest of training on the same tree, and progressive JPEG
     if not kernels_only:
-        train_phase(torch, dev, smi_line)
+        root, base, ck = train_phase(torch, dev, smi_line)
+        paths["eval"] = train_rest(torch, fq, fm, dev, smi_line, root, base,
+                                   ck)
+        shutil.rmtree(base, ignore_errors=True)
+        served["jpeg_progressive"] = jpeg_progressive(smi_line)
     if "--profile" in sys.argv[1:]:
         profile_gen_mesh(torch, model, opt, dev)
 
@@ -336,21 +350,27 @@ def _card_against_cpu(torch, dev, root) -> dict:
     return out
 
 
-def _run_train(args, cwd, log_path) -> dict:
-    """One ``cli.run_train`` process on the card: its per-step losses,
-    step and data milliseconds, peak memory and seconds."""
-    t0 = time.time()
+def _run_cli(args, cwd, log_path):
+    """One ``cli.run_train`` process on the card; its stdout lines."""
     with open(log_path, "w") as log:
         r = subprocess.run(
             [sys.executable, "-m", "rgbd_pifuhd_tpu_torch.cli.run_train"]
             + args, cwd=cwd, stdout=subprocess.PIPE, stderr=log, text=True,
             timeout=900, env={**os.environ, "PYTHONPATH": HERE})
-    secs = time.time() - t0
     if r.returncode != 0:
         fail(f"run_train {args[:2]} exit {r.returncode}: "
              f"{open(log_path).read()[-3000:]}")
+    return r.stdout.splitlines()
+
+
+def _run_train(args, cwd, log_path) -> dict:
+    """One ``cli.run_train`` process on the card: its per-step losses,
+    step and data milliseconds, peak memory and seconds."""
+    t0 = time.time()
+    lines = _run_cli(args, cwd, log_path)
+    secs = time.time() - t0
     losses, step_ms, data_ms, peak = [], [], [], None
-    for ln in r.stdout.splitlines():
+    for ln in lines:
         if ln.startswith("Name: "):
             losses.append(float(ln.split("Err: ")[1].split()[0]))
             data_ms.append(float(ln.split("stepD: ")[1].split("ms")[0]))
@@ -369,11 +389,12 @@ def _run_train(args, cwd, log_path) -> dict:
             "process_s": round(secs, 2)}
 
 
-def train_phase(torch, dev, smi_line) -> None:
+def train_phase(torch, dev, smi_line):
     """``[train]``: the port writes a training tree, one training step is
     held card against CPU, ``cli.run_train`` pretrains the coarse model
     and trains the fine one at the paper's widths (bf16), netG stays
-    bit-equal through the fine stage, and the fine checkpoint meshes."""
+    bit-equal through the fine stage, and the fine checkpoint meshes.
+    Returns the tree, the phase's directory and its checkpoints'."""
     import dataclasses
 
     import numpy as np
@@ -464,8 +485,342 @@ def train_phase(torch, dev, smi_line) -> None:
         "netG_leaves_equal": n_g, "fine_mlp_leaves_moved": len(moved),
         "gen_mesh_256_s": round(time.time() - t0, 2), "verts": n_v}))
     del recon
-    shutil.rmtree(base, ignore_errors=True)
     torch.cuda.empty_cache()
+    return root, base, ck
+
+
+def _gan_grads(torch, gen, disc, batch, lr=1e-3):
+    """One GAN step (``make_gan_normal_train_step``) from the modules'
+    current parameters: the losses, ``{name: gradient}`` of both nets
+    (the generator's from its loss, the discriminator's from its own), and
+    the parameters after Adam, all on the CPU."""
+    from rgbd_pifuhd_tpu_torch.train.trainers import (
+        make_gan_normal_train_step, make_optimizer)
+
+    step = make_gan_normal_train_step(
+        gen, lambda i, x: disc(torch.cat([i, x], -1)),
+        make_optimizer("adam", lr, gen.parameters()),
+        make_optimizer("adam", lr, disc.parameters()))
+    m = step(batch)
+    grads = {f"{k}.{n}": p.grad.detach().float().cpu().clone()
+             for k, net in (("G", gen), ("D", disc))
+             for n, p in net.named_parameters()}
+    after = {f"{k}.{n}": p.detach().float().cpu().clone()
+             for k, net in (("G", gen), ("D", disc))
+             for n, p in net.named_parameters()}
+    return ({k: float(v) for k, v in m.items()}, grads, after)
+
+
+def _gan_card_against_cpu(torch, dev) -> dict:
+    """One GAN step at tiny widths (ngf 8, two downsamplings, one block;
+    ndf 8, two layers, two scales; 64^2, batch 2), f32, TF32 off, on the
+    card and on the CPU from the same parameters and batch: both losses
+    within 1e-6 relative, every gradient within 16 x the CPU gradient's
+    one-ulp spread (the input images moved by one float32 ulp, two draws)
+    + 1e-6 of its largest value."""
+    import numpy as np
+
+    from rgbd_pifuhd_tpu_torch.models.blocks import init_flax
+    from rgbd_pifuhd_tpu_torch.models.pix2pix import (
+        GlobalGenerator, MultiscaleDiscriminator)
+
+    g0 = GlobalGenerator(6, 3, 8, 2, 1, device="cpu")
+    d0 = MultiscaleDiscriminator(9, 8, 2, 2, device="cpu")
+    init_flax(g0, torch.Generator().manual_seed(5))
+    init_flax(d0, torch.Generator().manual_seed(6))
+    rng = np.random.default_rng(7)
+    batch = {"images": torch.from_numpy(rng.standard_normal(
+                 (2, 64, 64, 6)).astype(np.float32)),
+             "target": torch.from_numpy(np.tanh(rng.standard_normal(
+                 (2, 64, 64, 3))).astype(np.float32))}
+
+    def run(device, b):
+        g = GlobalGenerator(6, 3, 8, 2, 1, device=device)
+        d = MultiscaleDiscriminator(9, 8, 2, 2, device=device)
+        g.load_state_dict(g0.state_dict())
+        d.load_state_dict(d0.state_dict())
+        return _gan_grads(torch, g, d, {k: v.to(device)
+                                        for k, v in b.items()})
+
+    mc, gc, _ = run("cpu", batch)
+    mg, gg, _ = run(dev, batch)
+    spread = {k: torch.zeros_like(v) for k, v in gc.items()}
+    for _ in range(2):
+        sign = torch.from_numpy(rng.choice([-1.0, 1.0], tuple(
+            batch["images"].shape)).astype(np.float32))
+        pb = {**batch, "images": batch["images"] * (1 + sign * 2.0 ** -23)}
+        _, gp, _ = run("cpu", pb)
+        spread = {k: torch.maximum(spread[k], (gp[k] - gc[k]).abs())
+                  for k in gc}
+    for k in ("g_loss", "d_loss"):
+        if abs(mg[k] - mc[k]) > 1e-6 * abs(mc[k]) or not np.isfinite(mg[k]):
+            fail(f"[train_gan] {k}: card {mg[k]!r} vs CPU {mc[k]!r}")
+    worst = 0.0
+    for net in ("G", "D"):
+        top = max(float(v.abs().max()) for k, v in gc.items()
+                  if k.startswith(net))
+        for k in (k for k in gc if k.startswith(net)):
+            err = float((gg[k] - gc[k]).abs().max())
+            sp = float(spread[k].max())
+            if err > GRAD_ULPS * sp + GRAD_FLOOR * top:
+                fail(f"[train_gan] gradient of {k} off by {err:.3e} (CPU "
+                     f"one-ulp spread {sp:.3e}, top {top:.3e})")
+            if GRAD_ULPS * sp > GRAD_FLOOR * top:
+                worst = max(worst, err / sp)
+    return {"losses_card": mg, "losses_cpu": mc,
+            "loss_rel_err": max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in mc),
+            "grad_err_over_spread": round(worst, 3), "n_grads": len(gc)}
+
+
+def train_rest(torch, fq, fm, dev, smi_line, root, base, ck) -> dict:
+    """The rest of training on ``[train]``'s tree (3 subjects, 512^2
+    renders, load size 1024): ``[train_normals]``, ``[train_gan]``,
+    ``[train_alternating]``, ``[train_eval]``.  Returns the kernel
+    launches of the evaluation."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from rgbd_pifuhd_tpu_torch.cli import run_train
+    from rgbd_pifuhd_tpu_torch.data.datasets import TrainDataset
+    from rgbd_pifuhd_tpu_torch.models import MultiResPIFu
+    from rgbd_pifuhd_tpu_torch.models.blocks import init_flax
+    from rgbd_pifuhd_tpu_torch.models.pix2pix import (
+        GlobalGenerator, MultiscaleDiscriminator)
+    from rgbd_pifuhd_tpu_torch.train import loop
+    from rgbd_pifuhd_tpu_torch.train.loop import make_collate_normals
+    from rgbd_pifuhd_tpu_torch.train.trainers import (
+        make_gan_normal_train_step, make_optimizer)
+    from rgbd_pifuhd_tpu_torch.utils import checkpoint as ckpt
+    from rgbd_pifuhd_tpu_torch.utils.options import parse_options
+
+    card = {"card": smi_line}
+    # ---- [train_normals]: the CLI at the paper's widths, f32, 2 epochs
+    t0 = time.time()
+    lines = _run_cli(["--stage", "normals", "--dataroot", root, "--name",
+                      "nml", "--checkpoints_path", ck, "--num_epoch", "2",
+                      "--freq_save", "1", "--batch_size", "1"], base,
+                     os.path.join(base, "normals.log"))
+    secs = time.time() - t0
+    nets, label, peak = {}, None, None
+    for ln in lines:
+        if ln.startswith("Name: "):
+            net = ln.split("Name: ")[1].split()[0]
+            d = nets.setdefault(net, {"loss": [], "step": [], "data": []})
+            d["loss"].append(float(ln.split("Err: ")[1].split()[0]))
+            d["data"].append(float(ln.split("stepD: ")[1].split("ms")[0]))
+            d["step"].append(float(ln.split("stepN: ")[1].split("ms")[0]))
+        elif ln.startswith("[pretrain_normals] perceptual loss: "):
+            label = ln.split(": ")[1]
+        elif ln.startswith("peak device memory: "):
+            peak = int(ln.split(": ")[1].split()[0])
+    res = {}
+    for net in ("netF", "netB"):
+        d = nets.get(f"nml_{net}")
+        if not d or len(d["loss"]) != 2 * len(TRAIN_SUBJECTS) or \
+                not np.isfinite(d["loss"]).all():
+            fail(f"[train_normals] {net}: {d}")
+        pngs = [os.path.exists(os.path.join(
+            base, "train_result", f"nml_{net}", f"sample_epoch_{e}.png"))
+            for e in (0, 1)]
+        if not all(pngs):
+            fail(f"[train_normals] {net}: montage PNGs {pngs}")
+        res[net] = {"steps": len(d["loss"]), "first_loss": d["loss"][0],
+                    "last_loss": d["loss"][-1],
+                    "median_step_ms": float(np.median(d["step"][1:])),
+                    "median_data_ms": float(np.median(d["data"][1:])),
+                    "montage_pngs": pngs}
+    if peak is None or label is None:
+        fail(f"[train_normals] peak {peak}, perceptual {label}")
+    if os.path.exists(ckpt.latest_path(ck, "nml_netG")):
+        fail("[train_normals] --stage normals wrote a checkpoint")
+    phase("train_normals", json.dumps({
+        **card, "widths": "netF/netB GlobalGenerator(64, 4, 9), 1024^2 x 6,"
+        " f32 (cuDNN's default TF32 convolutions), batch 1",
+        "perceptual": label, "peak_mem_bytes": peak,
+        "process_s": round(secs, 2), **res}))
+
+    # ---- [train_gan]: tiny card against CPU, then the paper's widths
+    parity = _gan_card_against_cpu(torch, dev)
+    opt = parse_options(["--dataroot", root])
+    items = TrainDataset(opt, load_mesh=False, seed=0)
+    collate = make_collate_normals("imF", "Fstyle")
+    gen = GlobalGenerator(6, 3, 64, 4, 9, device="cpu")
+    disc = MultiscaleDiscriminator(9, 64, 3, 3, device="cpu")
+    init_flax(gen, torch.Generator().manual_seed(0))
+    init_flax(disc, torch.Generator().manual_seed(1))
+    gen, disc = gen.to(dev), disc.to(dev)
+    before = {"G": gen.head.weight.detach().clone(),
+              "D": disc.scale2.conv0.weight.detach().clone()}
+    step = make_gan_normal_train_step(
+        gen, lambda i, x: disc(torch.cat([i, x], -1)),
+        make_optimizer("adam", opt.learning_rate, gen.parameters()),
+        make_optimizer("adam", opt.learning_rate, disc.parameters()))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms, losses = [], []
+    for i in range(6):          # the first a warm-up, then 5 timed
+        b = {k: v.to(dev) for k, v in collate(
+            [items[i % len(TRAIN_SUBJECTS)]]).items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(b)
+        losses.append({k: float(v) for k, v in m.items()})
+        ms.append((time.perf_counter() - t0) * 1e3)
+    moved = {k: not torch.equal(v, w) for k, v, w in (
+        ("G", before["G"], gen.head.weight),
+        ("D", before["D"], disc.scale2.conv0.weight))}
+    if not all(np.isfinite(list(v.values())).all() for v in losses) or \
+            not all(moved.values()):
+        fail(f"[train_gan] losses {losses}, moved {moved}")
+    phase("train_gan", json.dumps({
+        **card, "card_vs_cpu": parity,
+        "widths": "GlobalGenerator(64, 4, 9) + MultiscaleDiscriminator(64,"
+        " 3 layers, 3 scales) on concat(images, map), 1024^2, f32, TF32 "
+        "off, batch 1, no perceptual term",
+        "steps": len(ms), "median_step_ms": float(np.median(ms[1:])),
+        "first_step_ms": ms[0],
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+        "first_losses": losses[0], "last_losses": losses[-1],
+        "moved": moved}))
+    del gen, disc, step, before
+    torch.cuda.empty_cache()
+
+    # ---- [train_alternating]: one cycle in-process, coarse / fine bf16
+    alt_ck = os.path.join(base, "alt")
+    opt = parse_options(["--dataroot", root, "--name", "alt",
+                         "--checkpoints_path", alt_ck, "--compute_dtype",
+                         "bfloat16", "--num_sample_inout", "4096",
+                         "--sigma", "8", "--freq_save", "1000"])
+    stage_s: list = []
+    real = {n: getattr(loop, n) for n in ("pretrain_coarse",
+                                           "pretrain_normals", "train_fine")}
+
+    def timed(name):
+        def fn(*a, **kw):
+            t = time.time()
+            out = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            stage_s.append((name, round(time.time() - t, 2)))
+            return out
+        return fn
+
+    cwd = os.getcwd()
+    os.chdir(base)
+    try:
+        for n in real:
+            setattr(loop, n, timed(n))
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tree = loop.train_alternating(opt, cycles=1, nml_epochs=1,
+                                          coarse_epochs=1, fine_epochs=1,
+                                          device=dev)
+        total = time.time() - t0
+    finally:
+        for n, f in real.items():
+            setattr(loop, n, f)
+        os.chdir(cwd)
+    if "netF" not in tree["params"]["netG"]:
+        fail("[train_alternating] netF is not in the returned tree's netG")
+    fine = ckpt.load_checkpoint(ckpt.latest_path(alt_ck, "alt"), "cpu")
+    m = MultiResPIFu(opt.netMR, opt.netG, device="cpu")
+    ckpt.load_params(m, fine["params"])
+    same = all(np.array_equal(a, ckpt.params_to_flax(m)["params"]["netG"][
+        "netF"]["head"][k]) for k, a in tree["params"]["netG"]["netF"][
+            "head"].items())
+    if not same:
+        fail("[train_alternating] the fine checkpoint's netF differs from "
+             "the returned tree's")
+    del tree, fine, m
+    phase("train_alternating", json.dumps({
+        **card, "widths": "paper defaults, coarse and fine bf16, netF/netB "
+        "f32; one cycle, one epoch (3 steps) a stage",
+        "stage_s": stage_s, "total_s": round(total, 2)}))
+    shutil.rmtree(alt_ck, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- [train_eval]: --stage eval over [train]'s fine checkpoints
+    args = ["--stage", "eval", "--dataroot", root, "--name", "smoke",
+            "--checkpoints_path", ck, "--compute_dtype", "bfloat16",
+            "--num_sample_inout", "4096", "--sigma", "8", "--freq_save",
+            "1000"]
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        _, n = _counts(torch, fq, fm, lambda: run_train.main(args))
+    secs = time.time() - t0
+    errs = [float(ln.split("= ")[1]) for ln in out.getvalue().splitlines()
+            if ln.startswith("epoch ")]
+    npy = os.path.join(ck, "smoke_eval_epoch_0.npy")
+    if len(errs) != 1 or not np.isfinite(errs).all() or \
+            not os.path.exists(npy) or n["fused_gather_mlp"] == 0:
+        fail(f"[train_eval] Err(occ:fine) {errs}, npy "
+             f"{os.path.exists(npy)}, launches {n}")
+    phase("train_eval", json.dumps({
+        **card, "epochs": len(errs), "err_occ_fine": errs,
+        "batch_losses": np.load(npy).tolist(), "secs": round(secs, 2),
+        "launches": n}))
+    return n
+
+
+def jpeg_progressive(smi_line) -> dict:
+    """``[jpeg_progressive]``: the committed progressive subject decoded by
+    ``utils/jpeg.py`` against its committed expected pixels (what
+    ``cv2.imread`` gives, written as PNG; the card's host has no cv2),
+    then served by a flagship-lite ``cli.serve`` (512^3); returns the
+    process's launch counts."""
+    import numpy as np
+
+    from rgbd_pifuhd_tpu_torch.utils import jpeg, png
+
+    src = os.path.join(HERE, "tests", "data", "jpeg_progressive")
+    t0 = time.time()
+    got = jpeg.read_rgb8(os.path.join(src, "capsule.jpg"))
+    decode_s = time.time() - t0
+    want = png.read_rgb8(os.path.join(HERE, "tests", "data",
+                                      "jpeg_progressive_expected.png"))
+    if got.shape != want.shape:
+        fail(f"[jpeg_progressive] shape {got.shape} vs {want.shape}")
+    diff = int(np.abs(got.astype(int) - want.astype(int)).max())
+    if diff:
+        fail(f"[jpeg_progressive] max |diff| {diff} against the expected "
+             "pixels")
+    results = os.path.join(OUT_DIR, "serve_progressive")
+    shutil.rmtree(results, ignore_errors=True)
+    t0 = time.time()
+    srv = _Server(["--load_netMR_checkpoint_path", CKPT, "--results_path",
+                   results, "--name", "prog", "--resolution", "512",
+                   "--loadSize", "1024"],
+                  os.path.join(OUT_DIR, "serve_progressive.log"))
+    try:
+        (ready,) = srv.read(1)
+        if ready.get("ready") is not True:
+            fail(f"[jpeg_progressive] no ready line: {ready}")
+        t_ready = time.time() - t0
+        (reply,), s_req = srv.ask(f"{src}::capsule")
+        n = srv.quit()
+    finally:
+        srv.kill()
+    if "mesh" not in reply:
+        fail(f"[jpeg_progressive] reply {reply}")
+    pos, n_f = _obj_positions(reply["mesh"], reply["verts"])
+    if len(pos) == 0 or n_f == 0:
+        fail("[jpeg_progressive] empty mesh")
+    _check_bbox("[jpeg_progressive] capsule", pos, _subject_box(512))
+    if not (n["query_calls"] > 0
+            and n["fused_gather_mlp"] == 2 * n["query_calls"]):
+        fail(f"[jpeg_progressive] launch counts {n}")
+    shutil.rmtree(results, ignore_errors=True)
+    phase("jpeg_progressive", json.dumps({
+        "card": smi_line,
+        "subject": "tests/data/jpeg_progressive/capsule.jpg (512^2, q90, "
+        "4:2:0, progressive)", "max_abs_diff": diff,
+        "decode_s": round(decode_s, 3), "ready_s": round(t_ready, 2),
+        "cold_request_s": round(s_req, 3), "server_secs": reply["secs"],
+        "read_secs": reply["read_secs"], "verts": len(pos), "faces": n_f,
+        "launches": n}))
+    return n
 
 
 def device_info(torch) -> dict:

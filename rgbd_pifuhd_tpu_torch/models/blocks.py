@@ -283,19 +283,30 @@ class HGFilter(nn.Module):
         return outputs, normx
 
 
-def init_flax(model: nn.Module, generator: torch.Generator) -> None:
+def init_flax(model: nn.Module, generator: torch.Generator,
+              lecun: bool = False) -> None:
     """Re-draw every parameter of ``model`` as flax's initialisers draw
     them: conv, dense and transposed-conv weights N(0, 0.02) (the JAX
     package's ``conv_init``), biases 0, norm scales 1, running statistics
-    0 / 1.  The draws come from ``generator`` (a CPU generator) in module
-    order."""
+    0 / 1.  ``lecun``: conv weights as flax's default ``lecun_normal``
+    instead (a normal truncated at +-2, scaled to variance 1 / fan_in;
+    the modules built without ``kernel_init``: VGG16, the perceptual
+    backbone).  The draws come from ``generator`` (a CPU generator) in
+    module order."""
     from .pix2pix import ConvTranspose
 
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (Conv, nn.Linear, ConvTranspose)):
-                w = torch.empty(m.weight.shape).normal_(0.0, 0.02,
-                                                        generator=generator)
+                if lecun and isinstance(m, Conv):
+                    fan_in = m.weight[0].numel()
+                    w = nn.init.trunc_normal_(
+                        torch.empty(m.weight.shape), 0.0, 1.0, -2.0, 2.0,
+                        generator=generator) * (
+                            fan_in ** -0.5 / 0.87962566103423978)
+                else:
+                    w = torch.empty(m.weight.shape).normal_(
+                        0.0, 0.02, generator=generator)
                 m.weight.copy_(w)
                 if m.bias is not None:
                     m.bias.zero_()

@@ -80,8 +80,16 @@ def upsample2x_bicubic(x: torch.Tensor) -> torch.Tensor:
 def avg_pool2d(x: torch.Tensor, window: int = 2, stride: int | None = None,
                padding: int = 0, count_include_pad: bool = True
                ) -> torch.Tensor:
-    """``F.avg_pool2d`` on NHWC (channels-last view, no copy)."""
+    """``F.avg_pool2d`` on NHWC (a channels-last view, no copy, where the
+    windows do not overlap).  Overlapping windows (``window > stride``) pool
+    a contiguous NCHW copy: on the card, PyTorch 2.11's (CUDA 12.8)
+    backward of such a pool over channels-last strides is wrong (up to
+    half of the gradient's scale), the forward and the contiguous case
+    right."""
     stride = window if stride is None else stride
-    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride, padding,
+    x = x.permute(0, 3, 1, 2)
+    if window > stride:
+        x = x.contiguous()
+    y = F.avg_pool2d(x, window, stride, padding,
                      count_include_pad=count_include_pad)
     return y.permute(0, 2, 3, 1)

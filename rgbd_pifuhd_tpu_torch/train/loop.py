@@ -4,7 +4,14 @@
   coarse checkpoint (``load_netG_checkpoint_path``, a JAX-package or port
   msgpack or a reference ``.pth``), optionally resumed
   (``continue_train`` / ``resume_epoch``);
-- ``pretrain_coarse``: the coarse model (netG) alone.
+- ``pretrain_coarse``: the coarse model (netG) alone;
+- ``pretrain_normals``: netF then netB (``GlobalGenerator``), each from
+  its own Adam at a constant rate, loss ``5 L1 + perceptual``
+  (``select_perceptual``), with a montage PNG per save epoch;
+- ``train_alternating``: the curriculum {normals -> coarse -> fine with
+  crops} x cycles;
+- ``evaluate_checkpoints``: the forward loss of every epoch checkpoint over
+  the evaluation set.
 
 Batches are shuffled per epoch with ``default_rng(seed + epoch)`` and
 prefetched in order by background threads (``data.prefetch``); each goes
@@ -22,18 +29,22 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..data.datasets import TrainDataset
+from ..data.datasets import EvalDataset, TrainDataset
 from ..models.blocks import init_flax
 from ..models.coarse import CoarsePIFu
 from ..models.multires import MultiResPIFu
+from ..models.pix2pix import GlobalGenerator
+from ..models.vgg import VGG16Features, make_perceptual_loss
 from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.logging import TrainLogger
 from ..utils.options import Options
+from ..utils.png import write_png
 from .trainers import (
     make_coarse_train_step,
     make_fine_train_step,
     make_lr_schedule,
+    make_normal_train_step,
     make_optimizer,
 )
 
@@ -63,6 +74,18 @@ def collate_coarse(items: list[dict]) -> dict:
         "calibs": _stack(i["calib"] for i in items),
         "labels": _stack(i["labels"] for i in items),
     }
+
+
+def make_collate_normals(target_key: str, style_key: str) -> Callable:
+    """Batch for netF / netB pretraining: input image, target map, style
+    image."""
+
+    def collate(items: list[dict]) -> dict:
+        return {"images": _stack(i["img"][0] for i in items),
+                "target": _stack(i[target_key] for i in items),
+                "style": _stack(i[style_key] for i in items)}
+
+    return collate
 
 
 def _batches(dataset, batch_size: int, collate: Callable, seed: int,
@@ -235,3 +258,196 @@ def pretrain_coarse(opt: Options, max_steps: int | None = None,
     _run(opt, dataset, model, step_fn, sched, collate_coarse,
          TrainLogger(f"{opt.name}_netG"), max_steps, save)
     return model
+
+
+# ----------------------------------------------------------- normal pretrain
+def select_perceptual(use_vgg: bool | str = "auto", seed: int = 0,
+                      device=None):
+    """The normal-pretraining perceptual loss and its label, as the JAX
+    package picks them: "auto" takes VGG16 only when weights are found
+    locally, else L1 alone ("l1_only"); "native" the committed backbone
+    (style weight 1e2, weight 0.3); True a VGG16 even with random
+    features; False L1 alone."""
+    if use_vgg == "auto":
+        if VGG16Features.find_weights() is not None:
+            return (make_perceptual_loss(
+                VGG16Features.load_weights(rng_key=seed), device=device),
+                "vgg16")
+        return None, "l1_only"
+    if use_vgg == "native":
+        from ..models.perceptual import (
+            CompactFeatures, find_backbone, load_backbone)
+        bpath = find_backbone()
+        if bpath:
+            return (make_perceptual_loss(
+                load_backbone(bpath), style_weight=1e2,
+                feature_model=CompactFeatures(device="cpu"), weight=0.3,
+                device=device), "native_backbone")
+        return None, "l1_only"
+    if use_vgg:
+        return (make_perceptual_loss(
+            VGG16Features.load_weights(rng_key=seed), device=device),
+            "vgg16_forced")
+    return None, "l1_only"
+
+
+def pretrain_normals(opt: Options, coarse_params: dict | None = None,
+                     max_steps: int | None = None,
+                     use_vgg: bool | str = "auto", device=None) -> dict:
+    """Train netF, then netB.  Given ``coarse_params`` (a coarse model's
+    flax tree) the nets start from its ``netF`` / ``netB``, the tree comes
+    back with them replaced and is written as ``<name>_netG``'s latest
+    checkpoint; otherwise both start from ``opt.seed`` and
+    ``{"netF": tree, "netB": tree}`` comes back, with no checkpoint.  The
+    batch-statistics collection of ``coarse_params`` is carried along (the
+    JAX package drops it, and its next coarse stage then fails on a
+    batch-norm model)."""
+    dev = resolve_device(device)
+    dataset = TrainDataset(opt, load_mesh=False, seed=opt.seed)
+    if len(dataset) < opt.batch_size:
+        raise RuntimeError(
+            f"dataset too small: {len(dataset)} items < batch_size "
+            f"{opt.batch_size}")
+    c = opt.netG
+    # drawn by the JAX loop to size the initialisation
+    in_ch = dataset[0]["img"].shape[-1]
+    perceptual, choice = select_perceptual(use_vgg, seed=opt.seed,
+                                           device=dev)
+    print(f"[pretrain_normals] perceptual loss: {choice}", flush=True)
+
+    out = None
+    if coarse_params is not None:
+        out = {**coarse_params, "params": dict(coarse_params["params"])}
+    results = {}
+    for net_name, target_key, style_key in (("netF", "imF", "Fstyle"),
+                                            ("netB", "imB", "Bstyle")):
+        gen = GlobalGenerator(in_ch, 3, c.nml_ngf, c.nml_n_downsampling,
+                              c.nml_n_blocks, device=dev)
+        if out is not None and net_name in out["params"]:
+            ckpt.load_params(gen, {"params": out["params"][net_name]})
+        else:
+            init_flax(gen, torch.Generator().manual_seed(opt.seed))
+        tx = make_optimizer("adam", opt.learning_rate, gen.parameters())
+        step_fn = make_normal_train_step(gen, tx, perceptual)
+        collate = make_collate_normals(target_key, style_key)
+        montage_batch = collate([dataset[0]])     # fixed montage subject
+
+        def save(epoch, gen=gen, batch=montage_batch, net_name=net_name):
+            if epoch % opt.freq_save == 0:
+                _save_normal_montage(opt, gen, batch, net_name, epoch)
+
+        # the JAX loop tests max_steps after a step: 0 still runs one
+        _run(opt, dataset, gen, step_fn, lambda _c: opt.learning_rate,
+             collate, TrainLogger(f"{opt.name}_{net_name}"),
+             None if max_steps is None else max(max_steps, 1), save)
+        results[net_name] = ckpt.params_to_flax(gen)
+        if out is not None:
+            out["params"][net_name] = results[net_name]["params"]
+
+    if out is not None:
+        ckpt.save_checkpoint(
+            ckpt.latest_path(opt.checkpoints_path, f"{opt.name}_netG"),
+            out, opt, epoch=0)
+        return out
+    return results
+
+
+def _save_normal_montage(opt, gen, batch, net_name, epoch) -> None:
+    """``./train_result/<name>_<net>/sample_epoch_<N>.png``: input |
+    predicted | target of the first item, uint8 RGB, as the JAX package
+    writes it (``* 0.5 + 0.5``, ``* 255``, clipped, truncated)."""
+    dev = next(gen.parameters()).device
+    with torch.no_grad():
+        fake = gen(batch["images"].to(dev)).float().cpu()
+    panels = [batch["images"][0, ..., :3].numpy(), fake[0].numpy(),
+              batch["target"][0].numpy()]
+    img = np.concatenate(panels, axis=1) * 0.5 + 0.5
+    out_dir = os.path.join("./train_result", f"{opt.name}_{net_name}")
+    os.makedirs(out_dir, exist_ok=True)
+    write_png(os.path.join(out_dir, f"sample_epoch_{epoch}.png"),
+              (img * 255).clip(0, 255).astype(np.uint8))
+
+
+# ------------------------------------------------------------- alternating
+def train_alternating(opt: Options, cycles: int = 10, nml_epochs: int = 5,
+                      coarse_epochs: int = 5, fine_epochs: int = 10,
+                      max_steps: int | None = None, device=None) -> dict:
+    """The curriculum {normals -> coarse -> fine with crops} x cycles;
+    returns the fine model's flax tree.  Each cycle copies the coarse
+    tree's ``params`` into the fine tree's ``netG`` (its batch statistics
+    stay the fine tree's, as in the JAX package)."""
+    import dataclasses
+
+    dev = resolve_device(device)
+    coarse = fine = None
+    for _ in range(cycles):
+        if coarse is None:
+            coarse = ckpt.params_to_flax(pretrain_coarse(
+                dataclasses.replace(opt, num_epoch=0), max_steps=0,
+                device=dev))
+        coarse = pretrain_normals(dataclasses.replace(opt,
+                                                      num_epoch=nml_epochs),
+                                  coarse, max_steps=max_steps, device=dev)
+        coarse = ckpt.params_to_flax(pretrain_coarse(
+            dataclasses.replace(opt, num_epoch=coarse_epochs),
+            params=coarse, max_steps=max_steps, device=dev))
+        o = dataclasses.replace(opt, num_epoch=fine_epochs)
+        if fine is None:
+            # the JAX loop initialises from a fresh reader's first item
+            TrainDataset(o, seed=o.seed)[0]
+            model = build_multires(o, "cpu")
+            init_multires_params(o, model)
+            fine = ckpt.params_to_flax(model)
+            del model
+        fine["params"]["netG"] = coarse["params"]
+        fine = ckpt.params_to_flax(train_fine(o, use_crop=True, params=fine,
+                                              max_steps=max_steps,
+                                              device=dev))
+    return fine
+
+
+# ------------------------------------------------------------------ eval
+def evaluate_checkpoints(opt: Options, max_items: int | None = None,
+                         device=None) -> dict:
+    """The fine loss (``occ_fine``, ``train=False``: the queries go through
+    the kernels on the card) of ``<name>_train_epoch_<e>`` for ``e = 0,
+    freq_save, 2 freq_save, ...`` until one is missing, over the evaluation
+    set: every item once, the last batch shrunk, the item-weighted mean.
+    Each epoch's batch losses go to ``<checkpoints_path>/<name>_eval_epoch_
+    <e>.npy``.  Returns ``{epoch: loss}``."""
+    dev = resolve_device(device)
+    dataset = EvalDataset(opt)
+    model = build_multires(opt, dev)
+    n = min(len(dataset), max_items or len(dataset))
+    batch_size = max(min(opt.batch_size, n), 1)
+    results = {}
+    epoch = 0
+    while True:
+        path = ckpt.epoch_path(opt.checkpoints_path, opt.name, epoch)
+        if not os.path.exists(path):
+            break
+        ckpt.load_params(model, ckpt.load_checkpoint(path, dev)["params"])
+        errs, weights = [], []
+        count = 0
+        for batch in _batches(dataset, batch_size, collate_fine, seed=0,
+                              shuffle=False, drop_last=False):
+            if count >= n:
+                break
+            bsz = min(int(batch["labels"].shape[0]), n - count)
+            batch = {k: v[:bsz] for k, v in _to_device(batch, dev).items()}
+            with torch.no_grad():
+                err, _ = model(batch["images_local"],
+                               batch["images_global"], batch["points"],
+                               batch["calib_local"], batch["calib_global"],
+                               batch["labels"], train=False)
+            errs.append(float(err["occ_fine"]))
+            weights.append(bsz)
+            count += bsz
+        if not errs:
+            raise RuntimeError(f"eval dataset is empty ({opt.dataroot})")
+        results[epoch] = float(np.average(errs, weights=weights))
+        np.save(os.path.join(opt.checkpoints_path,
+                             f"{opt.name}_eval_epoch_{epoch}.npy"),
+                np.asarray(errs))
+        epoch += opt.freq_save
+    return results

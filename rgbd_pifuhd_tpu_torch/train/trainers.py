@@ -12,7 +12,14 @@
   batch already on the model's device — the training forward, backward,
   optimiser update — returning the metrics as device tensors.  Parameters
   that received no gradient (netG in the fine stage, the normal nets) are
-  left untouched, as optax leaves them for a zero gradient.
+  left untouched, as optax leaves them for a zero gradient;
+- ``make_normal_train_step``: netF or netB alone, loss ``5 L1 +
+  perceptual(target, fake, style)``;
+- ``make_gan_normal_train_step``: the same plus the lsgan term of a
+  multiscale discriminator on ``(images, map)``, in the JAX step's order:
+  the generator's loss against the discriminator as it was before the
+  step, the generator updated first, then the discriminator on the real
+  map and on the generator's output from before its update, detached.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from typing import Callable, Iterable, Sequence
 
 import numpy as np
 import torch
+
+from ..ops.losses import l1, multiscale_gan_loss
 
 
 def make_lr_schedule(base_lr: float, schedule_epochs: Sequence[int],
@@ -141,5 +150,62 @@ def make_coarse_train_step(model, opt: torch.optim.Optimizer,
         err.backward()
         opt.step()
         return {"loss": err.detach()}
+
+    return step
+
+
+def make_normal_train_step(gen, opt: torch.optim.Optimizer,
+                           perceptual_fn: Callable | None = None,
+                           l1_weight: float = 5.0) -> Callable:
+    """One normal-net step: ``gen(images) -> map``; ``perceptual_fn(x, y,
+    style) -> scalar`` or None (L1 alone)."""
+
+    def step(batch: dict) -> dict:
+        opt.zero_grad(set_to_none=True)
+        fake = gen(batch["images"])
+        loss = l1_weight * l1(fake, batch["target"])
+        if perceptual_fn is not None:
+            loss = loss + perceptual_fn(batch["target"], fake,
+                                        batch["style"])
+        loss.backward()
+        opt.step()
+        return {"loss": loss.detach()}
+
+    return step
+
+
+def make_gan_normal_train_step(gen, disc: Callable,
+                               opt_g: torch.optim.Optimizer,
+                               opt_d: torch.optim.Optimizer,
+                               perceptual_fn: Callable | None = None,
+                               l1_weight: float = 5.0,
+                               gan_weight: float = 1.0) -> Callable:
+    """Adversarial normal-map step.  ``disc(images, maps) -> list[list]``
+    (one list of layer outputs per scale); ``opt_g`` holds the
+    generator's parameters, ``opt_d`` the discriminator's."""
+    g_params = [p for grp in opt_g.param_groups for p in grp["params"]]
+
+    def step(batch: dict) -> dict:
+        opt_g.zero_grad(set_to_none=True)
+        fake = gen(batch["images"])
+        g_loss = l1_weight * l1(fake, batch["target"])
+        if perceptual_fn is not None:
+            g_loss = g_loss + perceptual_fn(batch["target"], fake,
+                                            batch["style"])
+        g_loss = g_loss + gan_weight * multiscale_gan_loss(
+            disc(batch["images"], fake), True)
+        # the discriminator's gradient of this loss is not its own
+        g_loss.backward(inputs=g_params)
+        opt_g.step()
+
+        opt_d.zero_grad(set_to_none=True)
+        d_loss = 0.5 * (
+            multiscale_gan_loss(disc(batch["images"], batch["target"]),
+                                True)
+            + multiscale_gan_loss(disc(batch["images"], fake.detach()),
+                                  False))
+        d_loss.backward()
+        opt_d.step()
+        return {"g_loss": g_loss.detach(), "d_loss": d_loss.detach()}
 
     return step

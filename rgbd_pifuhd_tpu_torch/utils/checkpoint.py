@@ -18,9 +18,12 @@ whose attribute names follow the flax tree one to one (``netG/netF/down0``
 - Dense ``kernel [in, out]`` -> ``nn.Linear`` ``weight [out, in]`` (the
   layout the fused query kernel reads: each output column contiguous in K);
 - Conv ``kernel`` HWIO -> ``weight`` OIHW;
-- ConvTranspose (``up{i}`` of a GlobalGenerator) HWIO -> torch
-  ``ConvTranspose2d`` ``[in, out, kh, kw]`` with the spatial flip undone
-  (the inverse of ``rgbd_pifuhd_tpu/utils/torch_import.py:102-106``);
+- ConvTranspose (``up{i}`` of a GlobalGenerator or an Encoder, ``g_up{i}``
+  and ``l_up`` of a LocalEnhancer) HWIO -> torch ``ConvTranspose2d``
+  ``[in, out, kh, kw]`` with the spatial flip undone (the inverse of
+  ``rgbd_pifuhd_tpu/utils/torch_import.py:102-106``).  ``load_params``
+  takes which kernels are transposed from the model's modules (the
+  perceptual decoder's ``up{i}`` are plain convolutions);
 - GroupNorm and BatchNorm ``scale`` / ``bias`` -> ``weight`` / ``bias``;
 - the ``batch_stats`` collection's ``mean`` / ``var`` -> the BatchNorm
   buffers of the same names.
@@ -184,12 +187,14 @@ def restore_options(cli_opt: Options, ckpt: dict) -> tuple[Options, Options]:
     return opt, Options.from_dict(ckpt["opt_netG"])
 
 
-_DECONV = re.compile(r"^up\d+$")
+_DECONV = re.compile(r"^(g_|l_)?up\d*$")
 
 
-def params_from_flax(tree: dict) -> dict:
+def params_from_flax(tree: dict, deconv: set | None = None) -> dict:
     """Flax variables (``{"params": ..., "batch_stats": ...}``) or a bare
-    parameter tree, numpy or torch leaves -> torch state_dict."""
+    parameter tree, numpy or torch leaves -> torch state_dict.
+    ``deconv``: the dotted module paths whose kernels are transposed
+    convolutions (default: the generators' names, ``_DECONV``)."""
     trees = [tree]
     if "params" in tree and set(tree) <= {"params", "batch_stats"}:
         trees = [tree["params"], tree.get("batch_stats", {})]
@@ -207,7 +212,8 @@ def params_from_flax(tree: dict) -> dict:
             if k == "kernel":
                 if t.ndim == 2:                       # Dense [in, out]
                     t = t.t()
-                elif _DECONV.match(parent):           # ConvTranspose
+                elif (_DECONV.match(parent) if deconv is None
+                      else ".".join(path) in deconv):  # ConvTranspose
                     t = t.flip(0, 1).permute(2, 3, 0, 1)
                 else:                                 # Conv HWIO -> OIHW
                     t = t.permute(3, 2, 0, 1)
@@ -225,7 +231,11 @@ def params_from_flax(tree: dict) -> dict:
 
 def load_params(model: torch.nn.Module, tree: dict) -> None:
     """Load a flax tree into ``model`` (strict: every name must match)."""
-    model.load_state_dict(params_from_flax(tree), strict=True)
+    from ..models.pix2pix import ConvTranspose
+
+    deconv = {n for n, m in model.named_modules()
+              if isinstance(m, ConvTranspose)}
+    model.load_state_dict(params_from_flax(tree, deconv), strict=True)
 
 
 def params_to_flax(model: torch.nn.Module) -> dict:

@@ -9,6 +9,13 @@ same:
 
 - Huffman decoding of a sequential (baseline or extended) 8-bit scan, one
   or more scans, interleaved or not, with restart markers;
+- progressive (SOF2) Huffman decoding (``jdphuff.c``): spectral selection
+  and successive approximation — DC first and refinement scans, AC first
+  scans with end-of-band runs, AC refinement scans with their correction
+  bits — restart intervals in every kind of scan, into one coefficient
+  buffer for the whole image, decoded after the last scan (a complete file
+  leaves no coefficient bits unknown, so libjpeg's block smoothing does not
+  run);
 - dequantisation and the integer "islow" IDCT (``jidctint.c``: 13-bit
   constants, 2 extra bits between the passes, the post-IDCT range-limit
   table with its wrap-around);
@@ -16,8 +23,8 @@ same:
   triangle filter with libjpeg's rounding biases, edge samples replicated;
 - fixed-point YCbCr -> RGB (``jdcolor.c``: 16-bit tables).
 
-Progressive, arithmetic-coded, lossless, 12-bit and CMYK files, and other
-chroma sampling, raise ``ValueError`` naming the limit.
+Arithmetic-coded, lossless, 12-bit and CMYK files, and other chroma
+sampling, raise ``ValueError`` naming the limit.
 
 Huffman decoding is a Python loop over the symbols (a 16-bit lookup table
 per code); everything after it runs on whole NumPy arrays.
@@ -42,7 +49,7 @@ _ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
-_SOF_NAMES = {0xC1: None, 0xC0: None, 0xC2: "progressive",
+_SOF_NAMES = {0xC1: None, 0xC0: None, 0xC2: None,
               0xC3: "lossless", 0xC5: "differential sequential",
               0xC6: "differential progressive", 0xC7: "differential lossless",
               0xC9: "arithmetic-coded sequential",
@@ -116,34 +123,43 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _scan_units(scomps, mcux, mcuy, hmax, vmax, width, height) -> list:
+    """The scan's MCUs, each a list of ``(component id, block index)``: one
+    block each in a single-component scan (the component's own extent),
+    else the interleaved MCU order."""
+    if len(scomps) == 1:
+        c = scomps[0]
+        bw = _ceil(_ceil(width * c.h, hmax), 8)
+        bh = _ceil(_ceil(height * c.v, vmax), 8)
+        return [[(c.id, by * c.bw + bx)] for by in range(bh)
+                for bx in range(bw)]
+    return [[(c.id, (my * c.v + y) * c.bw + mx * c.h + x)
+             for c in scomps for y in range(c.v) for x in range(c.h)]
+            for my in range(mcuy) for mx in range(mcux)]
+
+
+def _intervals(units, restart, segments):
+    """``(segment, units)`` of each restart interval."""
+    per = restart or len(units)
+    n = -(-len(units) // per)
+    if n > len(segments):
+        raise ValueError("JPEG scan ends before its last restart interval")
+    return [(segments[s], units[s * per:(s + 1) * per]) for s in range(n)]
+
+
 def _decode_scan(segments, comps, scan, mcux, mcuy, restart, coefs,
                  dc_tabs, ac_tabs, hmax, vmax, width, height):
     """Huffman-decode one sequential scan into ``coefs`` (per component a
     flat list of 64 coefficients per block, in natural order)."""
     scomps = [(comps[cid], dc_tabs[td].lut, ac_tabs[ta].lut)
               for cid, td, ta in scan]
-    if len(scomps) == 1:
-        c = scomps[0][0]
-        bw = _ceil(_ceil(width * c.h, hmax), 8)
-        bh = _ceil(_ceil(height * c.v, vmax), 8)
-        units = [[(c.id, by * c.bw + bx)] for by in range(bh)
-                 for bx in range(bw)]
-    else:
-        units = []
-        for my in range(mcuy):
-            for mx in range(mcux):
-                units.append([(c.id, (my * c.v + y) * c.bw + mx * c.h + x)
-                              for c, _, _ in scomps
-                              for y in range(c.v) for x in range(c.h)])
+    units = _scan_units([c for c, _, _ in scomps], mcux, mcuy, hmax, vmax,
+                        width, height)
     tables = {c.id: (dc, ac) for c, dc, ac in scomps}
-    per = restart or len(units)
-    if -(-len(units) // per) > len(segments):
-        raise ValueError("JPEG scan ends before its last restart interval")
-    for s in range(-(-len(units) // per)):
-        data = segments[s]
+    for data, interval in _intervals(units, restart, segments):
         p = 0
         pred = {cid: 0 for cid in tables}
-        for unit in units[s * per:(s + 1) * per]:
+        for unit in interval:
             for cid, blk in unit:
                 dc, ac = tables[cid]
                 out = coefs[cid]
@@ -189,6 +205,122 @@ def _decode_scan(segments, comps, scan, mcux, mcuy, restart, coefs,
 
 
 _ZIGZAG_LIST = _ZIGZAG.tolist()
+
+
+class _Bits:
+    """MSB-first bit reader over one unstuffed restart interval (padded
+    with zero bytes)."""
+
+    def __init__(self, data: bytes):
+        self.data, self.p = data, 0
+
+    def _peek(self) -> int:
+        q = self.p >> 3
+        return int.from_bytes(self.data[q:q + 5], "big") << (self.p & 7)
+
+    def huff(self, lut) -> int:
+        e = lut[(self._peek() >> 24) & 0xFFFF]
+        if not e:
+            raise ValueError("corrupt JPEG data (bad Huffman code)")
+        self.p += e >> 8
+        return e & 0xFF
+
+    def bits(self, n: int) -> int:
+        if not n:
+            return 0
+        v = (self._peek() >> (40 - n)) & ((1 << n) - 1)
+        self.p += n
+        return v
+
+    def signed(self, t: int) -> int:
+        """``t`` bits as libjpeg's ``HUFF_EXTEND``."""
+        v = self.bits(t)
+        return v - (1 << t) + 1 if v < (1 << (t - 1)) else v
+
+
+def _decode_progressive_scan(segments, comps, scan, ss, se, ah, al, mcux,
+                             mcuy, restart, coefs, dc_tabs, ac_tabs, hmax,
+                             vmax, width, height):
+    """One progressive scan (``jdphuff.c``) into ``coefs``: spectral band
+    ``ss..se``, successive approximation ``ah`` -> ``al``."""
+    if ss == 0 and se != 0 or ss > se or se > 63 or (ss and len(scan) != 1):
+        raise ValueError(f"corrupt progressive JPEG scan (Ss {ss}, Se {se}, "
+                         f"{len(scan)} components)")
+    units = _scan_units([comps[cid] for cid, _, _ in scan], mcux, mcuy,
+                        hmax, vmax, width, height)
+    p1, m1 = 1 << al, -1 << al
+    zz = _ZIGZAG_LIST + [63] * 16     # libjpeg's guard past the band
+    dc_luts = {cid: dc_tabs[td].lut for cid, td, _ in scan if ss == 0
+               and ah == 0}
+    for data, interval in _intervals(units, restart, segments):
+        br = _Bits(data)
+        pred = {cid: 0 for cid, _, _ in scan}
+        eobrun = 0
+        for unit in interval:
+            for cid, blk in unit:
+                out, base = coefs[cid], blk * 64
+                if ss == 0 and ah == 0:                 # DC first
+                    t = br.huff(dc_luts[cid])
+                    if t:
+                        pred[cid] += br.signed(t)
+                    out[base] = pred[cid] << al
+                elif ss == 0:                           # DC refinement
+                    if br.bits(1):
+                        out[base] |= p1
+                elif ah == 0:                           # AC first
+                    if eobrun:
+                        eobrun -= 1
+                        continue
+                    lut = ac_tabs[scan[0][2]].lut
+                    k = ss
+                    while k <= se:
+                        rs = br.huff(lut)
+                        r, t = rs >> 4, rs & 15
+                        if t:
+                            k += r
+                            out[base + zz[k]] = br.signed(t) << al
+                        elif r == 15:
+                            k += 15
+                        else:
+                            eobrun = (1 << r) + br.bits(r) - 1
+                            break
+                        k += 1
+                else:                                   # AC refinement
+                    lut = ac_tabs[scan[0][2]].lut
+                    k = ss
+                    if not eobrun:
+                        while k <= se:
+                            rs = br.huff(lut)
+                            r, t = rs >> 4, rs & 15
+                            v = 0
+                            if t:
+                                v = p1 if br.bits(1) else m1
+                            elif r != 15:
+                                eobrun = (1 << r) + br.bits(r)
+                                break
+                            while k <= se:
+                                i = base + zz[k]
+                                c = out[i]
+                                if c:
+                                    if br.bits(1) and not c & p1:
+                                        out[i] = c + (p1 if c >= 0 else m1)
+                                else:
+                                    r -= 1
+                                    if r < 0:
+                                        break
+                                k += 1
+                            if v:
+                                out[base + zz[k]] = v
+                            k += 1
+                    if eobrun:
+                        while k <= se:
+                            i = base + zz[k]
+                            c = out[i]
+                            if c and br.bits(1) and not c & p1:
+                                out[i] = c + (p1 if c >= 0 else m1)
+                            k += 1
+                        eobrun -= 1
+
 
 # jidctint.c constants (13 fractional bits)
 _CONST_BITS, _PASS1_BITS = 13, 2
@@ -361,6 +493,7 @@ def decode(data: bytes) -> np.ndarray:
     width = height = 0
     restart = 0
     adobe = None
+    progressive = False
     coefs: dict = {}
     pos = 2
     n = len(data)
@@ -380,6 +513,8 @@ def decode(data: bytes) -> np.ndarray:
         if pos + 2 > n:
             raise ValueError("truncated JPEG file")
         (ln,) = struct.unpack(">H", data[pos:pos + 2])
+        if pos + ln > n:
+            raise ValueError("truncated JPEG file")
         seg = data[pos + 2:pos + ln]
         pos += ln
         if marker == 0xDB:                                   # DQT
@@ -408,11 +543,12 @@ def decode(data: bytes) -> np.ndarray:
             kind = _SOF_NAMES.get(marker, "arithmetic-coded")
             if kind is not None:
                 raise ValueError(f"{kind} JPEG is not supported: this "
-                                 "decoder reads baseline (sequential, "
-                                 "Huffman-coded) 8-bit files")
+                                 "decoder reads Huffman-coded sequential and "
+                                 "progressive 8-bit files")
             if seg[0] != 8:
                 raise ValueError(f"{seg[0]}-bit JPEG is not supported: this "
                                  "decoder reads 8-bit files")
+            progressive = marker == 0xC2
             height, width, nc = struct.unpack(">HHB", seg[1:6])
             if height == 0:
                 raise ValueError("JPEG with a DNL marker is not supported")
@@ -442,12 +578,20 @@ def decode(data: bytes) -> np.ndarray:
             scan = [(seg[1 + 2 * k], seg[2 + 2 * k] >> 4,
                      seg[2 + 2 * k] & 15) for k in range(ns)]
             ss, se, ahal = seg[1 + 2 * ns:4 + 2 * ns]
-            if (ss, se, ahal) != (0, 63, 0):
-                raise ValueError("progressive JPEG scans are not supported")
             end = _scan_end(data, pos)
-            _decode_scan(_restart_segments(data[pos:end]), comps, scan, mcux,
-                         mcuy, restart, coefs, dc_tabs, ac_tabs, hmax, vmax,
-                         width, height)
+            segments = _restart_segments(data[pos:end])
+            if progressive:
+                _decode_progressive_scan(
+                    segments, comps, scan, ss, se, ahal >> 4, ahal & 15,
+                    mcux, mcuy, restart, coefs, dc_tabs, ac_tabs, hmax, vmax,
+                    width, height)
+            elif (ss, se, ahal) != (0, 63, 0):
+                raise ValueError("corrupt JPEG: a sequential scan with "
+                                 f"spectral band {ss}..{se}")
+            else:
+                _decode_scan(segments, comps, scan, mcux, mcuy, restart,
+                             coefs, dc_tabs, ac_tabs, hmax, vmax, width,
+                             height)
             pos = end
         # APPn, COM and other markers: skipped
     if not coefs:

@@ -29,6 +29,9 @@ TRAINING_MODULES = ("train.trainers", "train.loop", "cli.run_train",
                     "data.datasets", "data.sampling", "data.containment",
                     "data.prefetch", "data.synthetic", "ops.losses",
                     "utils.imgproc", "utils.logging", "utils.checkpoint")
+# the rest of training: the normal nets' zoo, perceptual losses, metrics
+NORMALS_MODULES = ("models.pix2pix", "models.vgg", "models.perceptual",
+                   "utils.metrics", "cli.plot_error")
 
 
 def _banned(name: str) -> bool:
@@ -77,7 +80,8 @@ def test_import_every_module_without_jax():
                and sys.modules[m] is not None]
         assert not bad, bad
         assert len(names) >= 35, names
-        for n in {SERVING_MODULES + INFERENCE_MODULES + TRAINING_MODULES!r}:
+        for n in {SERVING_MODULES + INFERENCE_MODULES + TRAINING_MODULES
+                  + NORMALS_MODULES!r}:
             assert pkg.__name__ + "." + n in names, n
         print(len(names))
     """)
@@ -308,3 +312,95 @@ def test_training_entry_points_refuse_silent_cpu():
     for fn in (pretrain_coarse, train_fine):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn(Options(dataroot=os.path.join(REPO, "nonexistent")))
+
+
+def test_rest_of_training_runs_without_jax(tmp_path):
+    """With JAX, flax, optax, msgpack, cv2, PIL and the JAX package
+    blocked: normal-net pretraining with the committed perceptual
+    backbone (montages written as PNG), one GAN step, checkpoint
+    evaluation, the metrics, ``plot_error``'s text summary and the
+    committed progressive JPEG, on the CPU."""
+    code = textwrap.dedent(f"""
+        import sys, os
+        for m in {BANNED!r} + ("matplotlib",):
+            sys.modules[m] = None
+        sys.path.insert(0, {REPO!r})
+        os.chdir({str(tmp_path)!r})
+        import torch
+        from rgbd_pifuhd_tpu_torch.cli import plot_error
+        from rgbd_pifuhd_tpu_torch.data.synthetic import (
+            generate_synthetic_dataset)
+        from rgbd_pifuhd_tpu_torch.models.pix2pix import (
+            GlobalGenerator, MultiscaleDiscriminator)
+        from rgbd_pifuhd_tpu_torch.train import loop, trainers
+        from rgbd_pifuhd_tpu_torch.utils import checkpoint as ck, jpeg
+        from rgbd_pifuhd_tpu_torch.utils.metrics import (
+            chamfer_l2, compute_acc)
+        from rgbd_pifuhd_tpu_torch.utils.options import (Options,
+                                                         PIFuLevelConfig)
+        generate_synthetic_dataset("tree", ("sphere", "bumpy"), size=64,
+                                   load_size=64)
+        g = PIFuLevelConfig(num_stack=1, hg_depth=1, hg_dim=8,
+                            mlp_dim=(9, 32, 16, 1), mlp_res_layers=(),
+                            mlp_norm="none", merge_layer=1, nml_ngf=4,
+                            nml_n_downsampling=1, nml_n_blocks=1,
+                            load_size=64)
+        l = PIFuLevelConfig(num_stack=1, hg_depth=1, hg_dim=4,
+                            hg_down="no_down", mlp_dim=(20, 16, 1),
+                            mlp_res_layers=(), mlp_norm="none",
+                            merge_layer=-1, use_front_normal=False,
+                            use_back_normal=False, load_size=64)
+        opt = Options(dataroot="tree", load_size=64, load_size_big=32,
+                      load_size_local=32, num_sample_inout=64, sigma=3.0,
+                      netG=g, netMR=l, checkpoints_path="ck", name="x",
+                      freq_save=1)
+        out = loop.pretrain_normals(opt, max_steps=1, use_vgg="native",
+                                    device="cpu")
+        assert sorted(out) == ["netB", "netF"]
+        assert os.path.exists("train_result/x_netF/sample_epoch_0.png")
+        gen = GlobalGenerator(6, 3, 4, 1, 1, device="cpu")
+        disc = MultiscaleDiscriminator(9, 4, 2, 2, device="cpu")
+        step = trainers.make_gan_normal_train_step(
+            gen, lambda i, x: disc(torch.cat([i, x], -1)),
+            trainers.make_optimizer("adam", 1e-3, gen.parameters()),
+            trainers.make_optimizer("adam", 1e-3, disc.parameters()))
+        m = step({{"images": torch.randn(1, 32, 32, 6),
+                  "target": torch.randn(1, 32, 32, 3)}})
+        assert all(torch.isfinite(v) for v in m.values())
+        model = loop.build_multires(opt, "cpu")
+        ck.save_checkpoint(ck.epoch_path("ck", "x", 0),
+                           ck.params_to_flax(model), opt)
+        res = loop.evaluate_checkpoints(opt, device="cpu")
+        assert list(res) == [0] and os.path.exists("ck/x_eval_epoch_0.npy")
+        iou, _, _ = compute_acc(torch.tensor([0.9, 0.1]),
+                                torch.tensor([1.0, 0.0]))
+        assert float(iou) == 1.0
+        assert float(chamfer_l2(torch.zeros(4, 3), torch.zeros(2, 3))) == 0
+        plot_error.main(["--name", "x"])
+        img = jpeg.read_rgb8(os.path.join({REPO!r}, "tests", "data",
+                                          "jpeg_progressive", "capsule.jpg"))
+        assert img.shape == (512, 512, 3)
+        bad = [k for k in sys.modules
+               if (k == "rgbd_pifuhd_tpu" or k.startswith("rgbd_pifuhd_tpu."))
+               and sys.modules[k] is not None]
+        assert not bad, bad
+        print("ok")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and "ok" in r.stdout, r.stderr
+    assert "matplotlib unavailable; text summary only" in r.stdout
+
+
+@pytest.mark.parametrize("name", ["pretrain_normals", "train_alternating",
+                                  "evaluate_checkpoints"])
+def test_rest_of_training_refuses_silent_cpu(name):
+    """The new drivers default to ``cuda`` and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    from rgbd_pifuhd_tpu_torch.train import loop
+    from rgbd_pifuhd_tpu_torch.utils.options import Options
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(loop, name)(Options(dataroot=os.path.join(REPO,
+                                                          "nonexistent")))

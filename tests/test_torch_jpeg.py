@@ -2,13 +2,20 @@
 which the JAX package's reader calls, on files ``cv2.imencode`` writes in
 the test: qualities 75 and 95, chroma sampling 4:2:0, 4:2:2 and 4:4:4,
 grey, restart intervals, sizes that are not multiples of the block or MCU,
-and an EXIF orientation.  Target: the same pixels (max |diff| 0; measured
-0 on every case), held to at most one grey level.  A progressive file
-raises.
+and an EXIF orientation; progressive files (``IMWRITE_JPEG_PROGRESSIVE``:
+spectral selection and successive approximation) over the same samplings,
+ragged sizes, grey and restart intervals.  Target: the same pixels (max
+|diff| 0; measured 0 on every case), held to at most one grey level, and
+0 for the progressive cases.  Arithmetic-coded (here a progressive file
+whose SOF2 marker is rewritten to SOF10), truncated and broken files
+raise.
 
-The committed subject ``tests/data/jpeg_subject`` (the capsule at 512^2,
-quality 90, 4:2:0; ``chip_smoke.py`` serves it on the card) is read by
-both packages' ``InferenceDataset`` and served on the CPU.
+The committed subjects ``tests/data/jpeg_subject`` (the capsule at 512^2,
+quality 90, 4:2:0) and ``tests/data/jpeg_progressive`` (the same pixels
+written progressive, quality 90; its ``cv2.imread`` pixels committed as
+``tests/data/jpeg_progressive_expected.png``, which ``chip_smoke.py``
+holds the card's host to, having no cv2 there) are read by both
+packages' ``InferenceDataset`` and served on the CPU.
 """
 
 import os
@@ -24,6 +31,7 @@ from rgbd_pifuhd_tpu_torch.utils import jpeg
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUBJECT = os.path.join(REPO, "tests", "data", "jpeg_subject")
+PROGRESSIVE = os.path.join(REPO, "tests", "data", "jpeg_progressive")
 
 
 def _image(rng, h, w, c=3):
@@ -99,15 +107,56 @@ def test_exif_orientation(tmp_path, rng, orientation):
     assert _same(path) == 0
 
 
+@pytest.mark.parametrize("sampling", ["420", "422", "444"])
+@pytest.mark.parametrize("size,restart", [((64, 64), 0), ((37, 101), 1),
+                                          ((123, 77), 3)])
+def test_progressive_matches_cv2(tmp_path, rng, sampling, size, restart):
+    path = _write(str(tmp_path / "p.jpg"), _image(rng, *size), 85,
+                  sampling, restart=restart, progressive=1)
+    data = open(path, "rb").read()
+    assert b"\xff\xc2" in data and data.count(b"\xff\xda") > 1
+    assert _same(path) == 0
+
+
+def test_progressive_grey_with_restarts(tmp_path, rng):
+    path = _write(str(tmp_path / "pg.jpg"), _image(rng, 45, 61, 1)[..., 0],
+                  90, restart=2, progressive=1)
+    assert b"\xff\xdd" in open(path, "rb").read()
+    assert _same(path) == 0
+
+
 def test_progressive_and_broken_files_raise(tmp_path, rng):
     path = _write(str(tmp_path / "p.jpg"), _image(rng, 32, 32), 90,
                   progressive=1)
-    with pytest.raises(ValueError, match="progressive"):
-        jpeg.read_rgb8(path)
+    data = open(path, "rb").read()
+    arith = data.replace(b"\xff\xc2", b"\xff\xca", 1)
+    with pytest.raises(ValueError, match="arithmetic-coded progressive"):
+        jpeg.decode(arith)
+    with pytest.raises(ValueError, match="JPEG"):
+        jpeg.decode(data[:len(data) // 3])
     with pytest.raises(ValueError, match="JPEG"):
         jpeg.decode(b"\xff\xd8\xff")
     with pytest.raises(ValueError, match="not a JPEG"):
         jpeg.decode(b"\x89PNG")
+
+
+def test_progressive_subject_fixture():
+    """The committed progressive subject: cv2's pixels (and the committed
+    PNG of them), read by both packages' readers."""
+    from rgbd_pifuhd_tpu_torch.utils.png import read_rgb8 as read_png
+
+    path = os.path.join(PROGRESSIVE, "capsule.jpg")
+    assert b"\xff\xc2" in open(path, "rb").read()
+    assert os.path.getsize(path) < 256 * 1024
+    assert _same(path) == 0
+    want = read_png(os.path.join(REPO, "tests", "data",
+                                 "jpeg_progressive_expected.png"))
+    assert np.array_equal(jpeg.read_rgb8(path), want)
+    mine = InferenceDataset(PROGRESSIVE, 256)[0]
+    ref = JDataset(PROGRESSIVE, 256)[0]
+    for k in ("img", "img_512"):
+        np.testing.assert_allclose(mine[k], ref[k], rtol=0,
+                                   atol=1.0 / 127.5 + 1e-6)
 
 
 def test_subject_fixture_reads_as_the_jax_package_reads_it():
@@ -145,3 +194,23 @@ def test_serve_answers_a_jpeg_subject(tmp_path):
     assert len(got) == 1 and "error" not in got[0], got
     v, f, _ = load_obj(got[0]["mesh"])
     assert len(v) == got[0]["verts"] > 0 and len(f) > 0
+
+
+def test_serve_answers_a_progressive_subject(tmp_path):
+    """``cli.serve`` on the CPU (``bench_tiny``, res 32) answers the
+    committed progressive subject with a mesh."""
+    from rgbd_pifuhd_tpu_torch.cli import serve
+    from rgbd_pifuhd_tpu_torch.cli.common import load_reconstructor
+    from rgbd_pifuhd_tpu_torch.utils.options import parse_options
+
+    opt, dev = parse_options(
+        ["--load_netMR_checkpoint_path",
+         os.path.join(REPO, "assets", "bench_tiny", "ckpt"),
+         "--resolution", "32", "--loadSize", "128", "--device", "cpu"],
+        with_device=True)
+    recon, _, _ = load_reconstructor(opt, dev)
+    got = []
+    serve._serve_loop(recon, opt, str(tmp_path),
+                      [f"{PROGRESSIVE}::capsule\n"], got.append)
+    assert len(got) == 1 and "error" not in got[0], got
+    assert got[0]["verts"] > 0

@@ -11,8 +11,9 @@
   --load_netG_checkpoint_path`` at narrow widths set by the CLI's own
   flags, on a tree the port wrote: netG comes out of the fine stage
   bit-equal to the coarse checkpoint, netMR changed, the error histories
-  written, every loss finite.  Without ``--device cpu`` it raises on a
-  host without CUDA; the stages and flags of later slices raise by name.
+  written, every loss finite; ``--stage eval`` then evaluates the epoch
+  checkpoint.  Without ``--device cpu`` it raises on a host without CUDA;
+  an unknown stage and the multi-process flags (slice 9) raise by name.
 - ``cli.run_recon --demo-sphere --device cpu`` at narrow widths, 32^3.
 - ``train_fine`` with ``continue_train`` / ``resume_epoch`` starts from the
   named checkpoint; ``profile_trace`` writes a trace.
@@ -190,8 +191,12 @@ def test_cli_coarse_then_fine(world, monkeypatch):
     assert again["epoch"] == 0
     assert _equal_trees(jax.tree.map(lambda x: x.numpy(), e0["params"]),
                         jax.tree.map(lambda x: x.numpy(), again["params"]))
-    with pytest.raises(SystemExit, match="next training slice"):
-        run_train.main(["--stage", "normals"] + common)
+    # --stage eval over the epoch checkpoint the fine stage wrote
+    run_train.main(["--stage", "eval"] + common)
+    errs = np.load(str(base / "ck" / "c_eval_epoch_0.npy"))
+    assert len(errs) == 2 and np.isfinite(errs).all()
+    with pytest.raises(SystemExit, match="unknown --stage"):
+        run_train.main(["--stage", "nonsense"] + common)
     with pytest.raises(SystemExit, match="slice 9"):
         run_train.main(["--coordinator_address", "x:1"] + common)
     if not torch.cuda.is_available():
