@@ -31,6 +31,10 @@ line each; any failure exits non-zero:
    subject (``tests/data/jpeg_subject``); the launch counts each process
    reports are checked against its field queries, the mesh files against
    the replies;
+4b. ``[turntable]``: the main path's OBJ turned into a 36-frame 512^2
+   Motion-JPEG ``.avi`` (``recon.turntable``), read back and decoded;
+5b. ``[segment]``: GrabCut (``native/grabcut.cc``) on the served 1024^2
+   capsule, IoU against its exact mask, and ``crop_people``;
 6c. the rest of training on ``[train]``'s tree: ``[train_normals]``
    (``cli.run_train --stage normals`` at the paper's widths, 1024^2),
    ``[train_gan]`` (one GAN step card against CPU at tiny widths, then 5
@@ -40,6 +44,13 @@ line each; any failure exits non-zero:
    checkpoints, with the kernel launches it caused), and
    ``[jpeg_progressive]`` (the committed progressive subject decoded
    against its committed expected pixels, then served by ``cli.serve``);
+6d. offline data generation: ``[gen_data]`` (``cli.gen_data --obj_dir
+   --use_prt --yaw_step 4`` on two OBJ subjects, one textured at 81,920
+   faces: 90 views each at 512 / 1024, with PRT, rasterising and encoding
+   seconds), ``[gen_data_train]`` (``cli.run_train --stage coarse`` on the
+   generated tree, paper widths, bf16), ``[gen_data_eval]`` (``--stage
+   eval`` over ``[train]``'s fine checkpoints on the generated tree, with
+   its kernel launches) and ``[debug_vis]``;
 7. times (CUDA events) of both kernels and their plain versions at the
    full-width shapes, beside the card's bound for the same work, and of
    every launch of the coarse and the fine chain alone (``[time_layers]``)
@@ -185,6 +196,8 @@ def main() -> None:
     kernels_only = "--kernels-only" in sys.argv[1:]
     launches, esc = (0, {}) if kernels_only else main_path(torch, fq, model,
                                                            opt, dev)
+    if not kernels_only:
+        turntable(smi_line)
     # ---- 5. the other inference paths
     paths = {} if kernels_only else other_paths(torch, fq, fm, model, opt,
                                                 dev, esc)
@@ -197,6 +210,10 @@ def main() -> None:
         root, base, ck = train_phase(torch, dev, smi_line)
         paths["eval"] = train_rest(torch, fq, fm, dev, smi_line, root, base,
                                    ck)
+        # ---- 6d. offline data generation: OBJ subjects -> a tree that
+        # trains and evaluates on the card ([train]'s checkpoints)
+        paths["gen_data_eval"] = gen_data_phase(torch, fq, fm, smi_line,
+                                                base, ck)
         shutil.rmtree(base, ignore_errors=True)
         served["jpeg_progressive"] = jpeg_progressive(smi_line)
     if "--profile" in sys.argv[1:]:
@@ -823,6 +840,254 @@ def jpeg_progressive(smi_line) -> dict:
     return n
 
 
+# ------------------------------------------------ offline data generation
+GEN_TEXTURE = 1024          # the textured subject's map_Kd, pixels a side
+
+
+def _write_gen_subjects(objs: str) -> dict:
+    """Two OBJ subjects, 180 units tall at the training box's centre:
+    ``textured_100k.obj`` (the bumpy sphere at subdivision 6, 81,920 faces,
+    spherical ``vt``, an ``.mtl`` with ``Kd`` and a 1024^2 JPEG ``map_Kd``
+    written by ``utils/jpeg``) and ``capsule.obj`` (``Kd`` only).  Returns
+    each one's face count."""
+    import numpy as np
+
+    from rgbd_pifuhd_tpu_torch.data.synthetic import (
+        SUBJECT_CENTER, make_bumpy_sphere, make_capsule,
+        normalize_mesh_height)
+    from rgbd_pifuhd_tpu_torch.utils.jpeg import write_jpeg
+
+    os.makedirs(objs)
+    v, f = make_bumpy_sphere(subdiv=6)
+    d = v / np.linalg.norm(v, axis=1, keepdims=True)
+    uv = np.stack([np.arctan2(d[:, 0], d[:, 2]) / (2 * np.pi) + 0.5,
+                   np.arccos(np.clip(d[:, 1], -1, 1)) / np.pi], 1)
+    v = normalize_mesh_height(v) + SUBJECT_CENTER
+    yy, xx = np.mgrid[:GEN_TEXTURE, :GEN_TEXTURE]
+    tex = np.stack([128 + 100 * np.sin(xx / 23.0),
+                    128 + 100 * np.cos(yy / 17.0),
+                    128 + 60 * np.sin((xx + yy) / 41.0)], -1).astype(np.uint8)
+    write_jpeg(os.path.join(objs, "skin texture.jpg"), tex)
+    with open(os.path.join(objs, "textured.mtl"), "w") as fh:
+        fh.write("newmtl skin\nKd 0.8 0.7 0.6\nmap_Kd skin texture.jpg\n")
+    with open(os.path.join(objs, "textured_100k.obj"), "w") as fh:
+        fh.write("mtllib textured.mtl\nusemtl skin\n")
+        fh.writelines(f"v {p[0]:.5f} {p[1]:.5f} {p[2]:.5f}\n" for p in v)
+        fh.writelines(f"vt {t[0]:.6f} {t[1]:.6f}\n" for t in uv)
+        fh.writelines(f"f {a}/{a} {b}/{b} {c}/{c}\n" for a, b, c in f + 1)
+    faces = {"textured": len(f)}
+    v, f = make_capsule(1.6, 0.55, 4)
+    v = normalize_mesh_height(v) + SUBJECT_CENTER
+    with open(os.path.join(objs, "capsule.mtl"), "w") as fh:
+        fh.write("newmtl body\nKd 0.3 0.5 0.8\n")
+    with open(os.path.join(objs, "capsule.obj"), "w") as fh:
+        fh.write("mtllib capsule.mtl\nusemtl body\n")
+        fh.writelines(f"v {p[0]:.5f} {p[1]:.5f} {p[2]:.5f}\n" for p in v)
+        fh.writelines(f"f {a} {b} {c}\n" for a, b, c in f + 1)
+    faces["capsule"] = len(f)
+    return faces
+
+
+def gen_data_phase(torch, fq, fm, smi_line, base, ck) -> dict:
+    """``[gen_data]``: two OBJ subjects rendered by ``cli.gen_data
+    --use_prt --yaw_step 4`` at 512 / 1024 (90 views each), every mask
+    non-empty, every PARAM's calib taking the bbox centre to the NDC
+    origin; ``[gen_data_train]``: ``cli.run_train --stage coarse`` on the
+    tree at the paper's widths in bf16 (2 epochs of its 2 images);
+    ``[gen_data_eval]``: ``--stage eval`` over ``[train]``'s fine
+    checkpoints on the tree, in-process, with the kernel launches it
+    caused (returned); ``[debug_vis]``: ``cli.debug_vis`` on the tree."""
+    import ast
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from rgbd_pifuhd_tpu_torch.cli import run_train
+    from rgbd_pifuhd_tpu_torch.data.datasets import _calib_from_param
+    from rgbd_pifuhd_tpu_torch.utils import png
+
+    card = {"card": smi_line}
+    objs = os.path.join(OUT_DIR, "gen_objs")
+    tree = os.path.join(OUT_DIR, "gen_tree")
+    for d in (objs, tree):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.time()
+    faces = _write_gen_subjects(objs)
+    write_s = time.time() - t0
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, "-m", "rgbd_pifuhd_tpu_torch.cli.gen_data", "--out",
+         tree, "--obj_dir", objs, "--use_prt", "--yaw_step", "4"],
+        cwd=HERE, capture_output=True, text=True, timeout=900,
+        env={**os.environ, "PYTHONPATH": HERE})
+    secs = time.time() - t0
+    if r.returncode != 0:
+        fail(f"[gen_data] exit {r.returncode}: {r.stderr[-3000:]}")
+    lines = r.stdout.splitlines()
+    views = ast.literal_eval(lines[0].split("rendered ")[1].split(" into")[0])
+    seconds = json.loads(lines[1])["seconds"]
+    if views != {"textured": 90, "capsule": 90}:
+        fail(f"[gen_data] views {views}")
+    worst = 0.0
+    for subj in views:
+        for yaw in range(0, 360, 4):
+            tag = f"{yaw}_0_00"
+            m = png.read_png(os.path.join(tree, "MASK", subj, f"{tag}.png"))
+            if not (m > 127).any():
+                fail(f"[gen_data] {subj} {tag}: empty mask")
+            param = np.load(os.path.join(tree, "PARAM", subj, f"{tag}.npy"),
+                            allow_pickle=True).item()
+            calib, _ = _calib_from_param(param, 1024)
+            c = calib @ np.append(param["center"], 1.0)
+            worst = max(worst, float(np.abs(c[:3]).max()))
+    if worst > 1e-6:
+        fail(f"[gen_data] a calib takes the bbox centre to {worst} in NDC")
+    n_views = sum(views.values())
+    phase("gen_data", json.dumps({
+        **card, "subjects": {"textured": f"{faces['textured']} faces, "
+                             f"{GEN_TEXTURE}^2 JPEG map_Kd",
+                             "capsule": f"{faces['capsule']} faces, Kd"},
+        "size": 512, "load_size": 1024, "use_prt": True, "yaw_step": 4,
+        "views": views, "obj_write_s": round(write_s, 2),
+        "process_s": round(secs, 2), "seconds": seconds,
+        "raster_s_per_view": seconds["raster"] / n_views,
+        "encode_s_per_view": seconds["encode"] / n_views,
+        "max_abs_ndc_of_bbox_centre": worst}))
+
+    # ---- [gen_data_train]: the coarse stage on the generated tree
+    gck = os.path.join(base, "gen_ck")
+    os.makedirs(gck)
+    res = _run_train(["--stage", "coarse", "--dataroot", tree, "--name",
+                      "gen", "--checkpoints_path", gck, "--compute_dtype",
+                      "bfloat16", "--num_sample_inout", "4096", "--sigma",
+                      "8", "--batch_size", "1", "--num_epoch", "2",
+                      "--freq_save", "1000"], base,
+                     os.path.join(base, "gen_coarse.log"))
+    phase("gen_data_train", json.dumps({
+        **res, **card, "widths": "paper defaults, bf16", "tree": tree}))
+    shutil.rmtree(gck, ignore_errors=True)
+
+    # ---- [gen_data_eval]: [train]'s fine checkpoints on the new tree
+    args = ["--stage", "eval", "--dataroot", tree, "--name", "smoke",
+            "--checkpoints_path", ck, "--compute_dtype", "bfloat16",
+            "--num_sample_inout", "4096", "--sigma", "8", "--freq_save",
+            "1000"]
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        _, n = _counts(torch, fq, fm, lambda: run_train.main(args))
+    secs = time.time() - t0
+    errs = [float(ln.split("= ")[1]) for ln in out.getvalue().splitlines()
+            if ln.startswith("epoch ")]
+    if len(errs) != 1 or not np.isfinite(errs).all() or \
+            n["fused_gather_mlp"] == 0:
+        fail(f"[gen_data_eval] Err(occ:fine) {errs}, launches {n}")
+    phase("gen_data_eval", json.dumps({
+        **card, "checkpoint": "[train]'s smoke_train_epoch_0",
+        "err_occ_fine": errs, "secs": round(secs, 2), "launches": n}))
+
+    # ---- [debug_vis]
+    ply = os.path.join(OUT_DIR, "debug_vis.ply")
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, "-m", "rgbd_pifuhd_tpu_torch.cli.debug_vis",
+         "--dataroot", tree, "--ply", ply, "--out",
+         os.path.join(OUT_DIR, "debug_vis.png")],
+        cwd=HERE, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": HERE})
+    if r.returncode != 0:
+        fail(f"[debug_vis] exit {r.returncode}: {r.stderr[-3000:]}")
+    summary = r.stdout.splitlines()[0]
+    with open(ply) as fh:
+        body = fh.read().split("end_header\n")
+    n_pts = len(body[1].splitlines())
+    if not summary.startswith("subject=capsule samples=300 ") or \
+            "element vertex 300\n" not in body[0] or n_pts != 300:
+        fail(f"[debug_vis] {summary!r}, PLY {n_pts} points")
+    phase("debug_vis", json.dumps({
+        "summary": summary, "ply_points": n_pts,
+        "plot": r.stdout.splitlines()[-1], "secs": round(time.time() - t0,
+                                                         2)}))
+    for path in (objs, tree, ply):
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        elif os.path.exists(path):
+            os.remove(path)
+    return n
+
+
+def segment(dir_a: str) -> None:
+    """``[segment]``: GrabCut on the served 1024^2 capsule (the rect its
+    exact mask's box + 10 % a side), IoU against that mask >= 0.95; then
+    ``crop_people`` on the same file."""
+    import numpy as np
+
+    from rgbd_pifuhd_tpu_torch.data.segmentation import (
+        crop_people, segment_person_grabcut)
+    from rgbd_pifuhd_tpu_torch.data.synthetic import (
+        SUBJECT_CENTER, capsule_calib, make_capsule, normalize_mesh_height,
+        rasterize_ortho)
+    from rgbd_pifuhd_tpu_torch.utils import png
+
+    path = os.path.join(dir_a, "capsule.png")
+    img = png.read_rgb8(path)[:, :, ::-1]
+    v, f = make_capsule(1.6, 0.55, 3)
+    v = normalize_mesh_height(v, 180.0) + SUBJECT_CENTER
+    gt = rasterize_ortho(v, f, 1024, capsule_calib(1024, 1024))["mask"]
+    ys, xs = np.nonzero(gt)
+    x0, x1, y0, y1 = int(xs.min()), int(xs.max()), int(ys.min()), int(
+        ys.max())
+    mx, my = int(0.1 * (x1 - x0)) + 1, int(0.1 * (y1 - y0)) + 1
+    H, W = gt.shape
+    rect = (max(x0 - mx, 0), max(y0 - my, 0),
+            min(x1 + mx, W - 1) - max(x0 - mx, 0),
+            min(y1 + my, H - 1) - max(y0 - my, 0))
+    t0 = time.time()
+    mask = segment_person_grabcut(img, rect)
+    gc_s = time.time() - t0
+    iou = float((mask & gt).sum() / max((mask | gt).sum(), 1))
+    if iou < 0.95:
+        fail(f"[segment] GrabCut IoU {iou} against the exact mask")
+    t0 = time.time()
+    crop = crop_people(path, rect)
+    crop_s = time.time() - t0
+    if crop.shape != img.shape or not (crop[~gt & ~mask] == 255).all():
+        fail(f"[segment] crop_people gave {crop.shape}")
+    phase("segment", json.dumps({
+        "image": "served capsule, 1024^2 PNG", "rect": list(rect),
+        "grabcut_s": round(gc_s, 3), "iou_vs_exact_mask": iou,
+        "crop_people_s": round(crop_s, 3)}))
+
+
+def turntable(smi_line) -> None:
+    """``[turntable]``: ``generate_video_from_obj`` on ``[main]``'s OBJ, 36
+    frames at 512^2 into an ``.avi``, read back with ``utils/avi`` and
+    every frame decoded; then the OBJ and the video are removed."""
+    from rgbd_pifuhd_tpu_torch.recon.turntable import generate_video_from_obj
+    from rgbd_pifuhd_tpu_torch.utils import avi, jpeg
+
+    obj = os.path.join(OUT_DIR, "capsule_512.obj")
+    video = os.path.join(OUT_DIR, "turntable.avi")
+    t0 = time.time()
+    generate_video_from_obj(obj, video, 512, 36)
+    secs = time.time() - t0
+    info = avi.read_avi(video)
+    t0 = time.time()
+    shapes = {jpeg.decode(b).shape for b in info["frames"]}
+    if len(info["frames"]) != 36 or shapes != {(512, 512, 3)} or \
+            info["fps"] != 12:
+        fail(f"[turntable] {len(info['frames'])} frames, shapes {shapes}, "
+             f"fps {info['fps']}")
+    phase("turntable", json.dumps({
+        "card": smi_line, "obj_bytes": os.path.getsize(obj),
+        "video_s": round(secs, 2),
+        "bytes": os.path.getsize(video), "frames": len(info["frames"]),
+        "decode_s": round(time.time() - t0, 2)}))
+    os.remove(video)
+    os.remove(obj)
+
+
 def device_info(torch) -> dict:
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -1010,8 +1275,8 @@ def main_path(torch, fq, model, opt, dev) -> int:
     phase("repeat", f"vertex counts of the three runs: {counts}; the two "
           f"timed runs give the same mesh: {same}")
     phase("main", f"gen_mesh 512^3 timed runs: {[round(s, 4) for s in secs]}"
-          f" s; OBJ {path} ({os.path.getsize(path)} bytes, removed)")
-    os.remove(path)
+          f" s; OBJ {path} ({os.path.getsize(path)} bytes, kept for "
+          "[turntable])")
     return launches, recon._esc_budgets
 
 
@@ -1475,6 +1740,8 @@ def served_path() -> dict:
         "faces": n_f, "launches": n}))
     # ---- [serve_jpeg]: flagship-lite answers the committed JPEG subject
     counts["jpeg"] = served_jpeg(results)
+    # ---- [segment]: GrabCut on the 1024^2 served capsule
+    segment(dir_a)
     for d in (dir_a, dir_b, results):
         shutil.rmtree(d)
     return counts

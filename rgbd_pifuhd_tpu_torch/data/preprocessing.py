@@ -4,9 +4,12 @@
 ``addrect`` is the zero-padded person-rect crop, ``rect_to_ndc_transform``
 the calibration of that crop, ``normalize_image`` the map to ``[-1, 1]``.
 ``resize_image`` reproduces ``cv2.resize``'s default (``INTER_LINEAR``,
-half-pixel centres, no antialiasing) on uint8 images to within one grey
-level, with OpenCV's fixed-point scheme: 11-bit horizontal and vertical
-weights, the intermediate row sums kept as integers.
+half-pixel centres, no antialiasing) on uint8 images pixel for pixel, with
+OpenCV's fixed-point scheme: 11-bit horizontal and vertical weights, the
+intermediate row sums kept as integers.  As in OpenCV, a column outside the
+source is clamped to the edge with its weight, while a row outside it keeps
+its fractional weights and reads the edge row twice (which rounds
+differently in fixed point when upscaling).
 """
 
 from __future__ import annotations
@@ -54,27 +57,31 @@ def normalize_image(img: np.ndarray) -> np.ndarray:
     return img * 2.0 - 1.0
 
 
-def _taps(n_dst: int, n_src: int):
+def _taps(n_dst: int, n_src: int, clamp_frac: bool = True):
     """Left tap index and the fraction towards the right tap for each
-    destination coordinate (half-pixel centres, clamped at the borders)."""
+    destination coordinate (half-pixel centres, indices clamped at the
+    borders; the fraction too where ``clamp_frac``, as OpenCV does for
+    columns but not rows)."""
     f = (np.arange(n_dst, dtype=np.float64) + 0.5) * (n_src / n_dst) - 0.5
     i0 = np.floor(f).astype(np.int64)
     frac = (f - i0).astype(np.float32)
-    frac[i0 < 0] = 0.0
-    i0 = np.maximum(i0, 0)
-    frac[i0 >= n_src - 1] = 0.0
-    i0 = np.minimum(i0, n_src - 1)
-    return i0, np.minimum(i0 + 1, n_src - 1), frac
+    if clamp_frac:
+        frac[i0 < 0] = 0.0
+        frac[i0 >= n_src - 1] = 0.0
+    return (np.clip(i0, 0, n_src - 1), np.clip(i0 + 1, 0, n_src - 1),
+            frac)
 
 
-def resize_image(img: np.ndarray, size: int) -> np.ndarray:
-    """Resize HWC (or HW) to ``(size, size)``, bilinear as ``cv2.resize``."""
+def resize_image(img: np.ndarray, size) -> np.ndarray:
+    """Resize HWC (or HW) to ``(size, size)``, or to ``size = (width,
+    height)`` (``cv2.resize``'s ``dsize``), bilinear as ``cv2.resize``."""
     a = np.asarray(img)
     H, W = a.shape[:2]
-    if (H, W) == (size, size):
+    w_out, h_out = (size, size) if np.isscalar(size) else size
+    if (H, W) == (h_out, w_out):
         return a.copy()
-    y0, y1, fy = _taps(size, H)
-    x0, x1, fx = _taps(size, W)
+    y0, y1, fy = _taps(h_out, H, clamp_frac=False)
+    x0, x1, fx = _taps(w_out, W)
     flat = a.reshape(H, W, -1)
     if a.dtype == np.uint8:
         # OpenCV's 8-bit path: weights in 1/2048 units (rounded to
@@ -97,4 +104,4 @@ def resize_image(img: np.ndarray, size: int) -> np.ndarray:
                 + src[:, x1] * fx[None, :, None])
         out = (rows[y0] * (1.0 - fy)[:, None, None]
                + rows[y1] * fy[:, None, None]).astype(a.dtype)
-    return out.reshape((size, size) + a.shape[2:])
+    return out.reshape((h_out, w_out) + a.shape[2:])

@@ -138,13 +138,17 @@ def rotation_y(deg: float) -> np.ndarray:
 # ------------------------------------------------------------ rasterizer
 def _vertex_normals(verts: np.ndarray, faces: np.ndarray,
                     ndc: np.ndarray) -> np.ndarray:
-    """Area-weighted smooth vertex normals in view (NDC) space."""
+    """Smooth vertex normals in view (NDC) space: the sum of the unit
+    normals of a vertex's faces, normalised.  ``np.bincount`` over the
+    corners in the order faces[:, 0], faces[:, 1], faces[:, 2] adds in the
+    order the JAX package's three ``np.add.at`` passes do (the same bits),
+    about twice as fast."""
     v0, v1, v2 = (ndc[faces[:, 0]], ndc[faces[:, 1]], ndc[faces[:, 2]])
     fn = np.cross(v1 - v0, v2 - v0)
     fn /= np.maximum(np.linalg.norm(fn, axis=1, keepdims=True), 1e-12)
-    vn = np.zeros_like(verts, dtype=np.float64)
-    for k in range(3):
-        np.add.at(vn, faces[:, k], fn)
+    idx = faces.T.reshape(-1)
+    vn = np.stack([np.bincount(idx, weights=np.tile(fn[:, c], 3),
+                               minlength=len(verts)) for c in range(3)], 1)
     vn /= np.maximum(np.linalg.norm(vn, axis=1, keepdims=True), 1e-12)
     return vn
 

@@ -4,7 +4,9 @@
 ``meshio.cc`` (sparse-volume densify, affine transform, u16 vertex
 quantisation, OBJ writer) and ``raster.cc`` (the orthographic z-buffer
 rasteriser of the synthetic training trees) are copies of the JAX package's
-sources.  A failed build raises: this port has no NumPy fallback for them.
+sources; ``grabcut.cc`` (GrabCut segmentation, where the JAX package calls
+OpenCV) is the port's own.  A failed build raises: this port has no NumPy
+fallback for them.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ def build_all() -> None:
     load_marching()
     load_meshio()
     load_raster()
+    load_grabcut()
 
 
 def load_marching():
@@ -142,4 +145,20 @@ def load_raster():
             ip, fp, i64, i64, dp, fp, fp, fp,
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int]
         _CACHE["raster"] = lib
+        return lib
+
+
+def load_grabcut():
+    """ctypes handle to the GrabCut segmenter (raises on failure)."""
+    with _LOCK:
+        if "grabcut" in _CACHE:
+            return _CACHE["grabcut"]
+        lib = ctypes.CDLL(_build_lib("grabcut", "grabcut.cc"))
+        ci = ctypes.c_int
+        # img, H, W, rect x, y, w, h, iters, mask out
+        lib.grabcut_rect.restype = ci
+        lib.grabcut_rect.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64,
+            ci, ci, ci, ci, ci, ctypes.POINTER(ctypes.c_uint8)]
+        _CACHE["grabcut"] = lib
         return lib

@@ -10,15 +10,21 @@
   axis (the mesh cleaning of the image-colour path).
 - ``compute_vertex_normals``: area-weighted vertex normals (the colours of
   ``normal_mode='mesh'``).
+- ``load_obj_mtl``: the textured-subject reader of offline rendering
+  (UVs, materials, the ``map_Kd`` texture).
+- ``save_ply_points`` / ``save_occupancy_samples_ply``: ASCII PLY point
+  clouds of sampled points (``cli/debug_vis``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import numpy as np
 
 from ..native import load_meshio
+from ..utils.imageio import imread_rgb8
 
 
 def save_obj_with_color(path: str, verts: np.ndarray, faces: np.ndarray,
@@ -198,3 +204,145 @@ def compute_vertex_normals(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
         normals[:, c] = np.bincount(idx, weights=w, minlength=len(verts))
     lens = np.linalg.norm(normals, axis=1, keepdims=True)
     return (normals / np.maximum(lens, 1e-12)).astype(np.float32)
+
+
+def load_obj_mtl(path: str):
+    """OBJ reader with UV / material support (the textured-subject loader):
+    ``vt`` texture coordinates, ``mtllib`` / ``usemtl`` switches and the
+    referenced ``.mtl`` files (``newmtl`` / ``Kd`` / ``map_Kd``; file names
+    are the rest of the line and may hold spaces).  Returns a dict:
+
+        verts       [V, 3] float32
+        faces       [F, 3] int32 (quads and polygons fan-triangulated,
+                    negative indices resolved)
+        uvs         [T, 2] float32, or None when the OBJ has no ``vt``
+        face_uvs    [F, 3] int32 indices into uvs; -1 = no UVs
+        face_albedo [F, 3] float64 flat ``Kd`` per face (default 0.8 /
+                    0.65 / 0.55)
+        texture     [th, tw, 3] float32 RGB in [0, 1], or None: the first
+                    material's ``map_Kd`` (in ``newmtl`` order) that reads
+                    as ``cv2.imread`` reads it (``utils.imageio``); faces of
+                    other materials fall back to their ``Kd``.
+
+    A texture in a format OpenCV reads but this package does not decode
+    raises ``ValueError`` naming the format.
+    """
+    obj_dir = os.path.dirname(os.path.abspath(path))
+    default_kd = (0.8, 0.65, 0.55)
+    materials: dict[str, dict] = {}
+
+    def parse_mtl(mtl_path: str) -> None:
+        if not os.path.exists(mtl_path):
+            return
+        cur = None
+        with open(mtl_path) as fh:
+            for line in fh:
+                parts = line.split()
+                if not parts:
+                    continue
+                if parts[0] == "newmtl":
+                    cur = parts[1] if len(parts) > 1 else ""
+                    materials.setdefault(cur, {"Kd": default_kd,
+                                               "map_Kd": None})
+                elif parts[0] == "Kd" and cur is not None:
+                    materials[cur]["Kd"] = tuple(
+                        float(x) for x in parts[1:4])
+                elif (parts[0] == "map_Kd" and cur is not None
+                      and len(parts) > 1):
+                    materials[cur]["map_Kd"] = os.path.join(
+                        obj_dir, line.split(None, 1)[1].strip())
+
+    verts, uvs, faces, face_uvs, face_mats = [], [], [], [], []
+    cur_mat = None
+    with open(path) as fh:
+        for line in fh:
+            parts = line.split()
+            if not parts:
+                continue
+            tag = parts[0]
+            if tag == "mtllib" and len(parts) > 1:
+                parse_mtl(os.path.join(obj_dir,
+                                       line.split(None, 1)[1].strip()))
+            elif tag == "usemtl":
+                cur_mat = parts[1] if len(parts) > 1 else None
+            elif tag == "v":
+                verts.append([float(x) for x in parts[1:4]])
+            elif tag == "vt":
+                uvs.append([float(parts[1]), float(parts[2])])
+            elif tag == "f":
+                vi, ti = [], []
+                for p in parts[1:]:
+                    comps = p.split("/")
+                    i = int(comps[0])
+                    vi.append(i - 1 if i > 0 else len(verts) + i)
+                    if len(comps) > 1 and comps[1]:
+                        j = int(comps[1])
+                        ti.append(j - 1 if j > 0 else len(uvs) + j)
+                    else:
+                        ti.append(-1)
+                for k in range(1, len(vi) - 1):
+                    faces.append([vi[0], vi[k], vi[k + 1]])
+                    face_uvs.append([ti[0], ti[k], ti[k + 1]])
+                    face_mats.append(cur_mat)
+
+    texture = None
+    tex_mat = None
+    for name, m in materials.items():
+        if m["map_Kd"] and os.path.exists(m["map_Kd"]):
+            img = imread_rgb8(m["map_Kd"])
+            if img is not None:
+                texture = img.astype(np.float32) / 255.0
+                tex_mat = name
+                break
+
+    F = len(faces)
+    face_albedo = np.empty((F, 3), np.float64)
+    fuv = np.asarray(face_uvs, np.int32).reshape(F, 3)
+    for i, mat in enumerate(face_mats):
+        face_albedo[i] = materials.get(mat, {}).get("Kd", default_kd)
+        if texture is not None and mat != tex_mat:
+            fuv[i] = -1
+    return {
+        "verts": np.asarray(verts, np.float32),
+        "faces": np.asarray(faces, np.int32).reshape(F, 3),
+        "uvs": np.asarray(uvs, np.float32) if uvs else None,
+        "face_uvs": fuv,
+        "face_albedo": face_albedo,
+        "texture": texture,
+    }
+
+
+def save_ply_points(path: str, points: np.ndarray,
+                    colors: np.ndarray | None = None) -> None:
+    """ASCII PLY point cloud (a debugging aid): ``x y z`` with 4 decimals,
+    and uchar ``red green blue`` (``clip(colors * 255)`` truncated) when
+    colours are given."""
+    points = np.asarray(points, dtype=np.float64)
+    has_c = colors is not None
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {len(points)}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        if has_c:
+            f.write("property uchar red\nproperty uchar green\n"
+                    "property uchar blue\n")
+        f.write("end_header\n")
+        if has_c:
+            c255 = np.clip(np.asarray(colors) * 255, 0, 255).astype(int)
+            for p, c in zip(points, c255):
+                f.write(f"{p[0]:.4f} {p[1]:.4f} {p[2]:.4f} "
+                        f"{c[0]} {c[1]} {c[2]}\n")
+        else:
+            for p in points:
+                f.write(f"{p[0]:.4f} {p[1]:.4f} {p[2]:.4f}\n")
+
+
+def save_occupancy_samples_ply(path: str, points: np.ndarray,
+                               prob: np.ndarray) -> None:
+    """Occupancy samples as a PLY: red inside (prob > 0.5), green
+    outside."""
+    prob = np.asarray(prob).reshape(-1)
+    colors = np.stack(
+        [prob > 0.5, prob <= 0.5, np.zeros_like(prob)], axis=1
+    ).astype(np.float64)
+    save_ply_points(path, points, colors)

@@ -1,13 +1,14 @@
 """PNG files read and written with the standard library (``zlib``) and
 NumPy: the port decodes subjects without OpenCV or PIL.
 
-Read: non-interlaced gray, gray + alpha, RGB and RGBA at 8 bits and gray at
-16 bits, all five scanline filters.  Write: 8-bit gray or RGB (filter 0).
-Palette images, bit depths below 8, 16-bit colour and Adam7 interlacing
-raise ``ValueError`` naming the limit.  ``read_rgb8`` returns what
-``cv2.imread(path)`` (``IMREAD_COLOR``) returns, in RGB order: three 8-bit
-channels, gray replicated, alpha dropped, 16-bit samples cut to their high
-byte.
+Read: non-interlaced gray, gray + alpha, RGB and RGBA at 8 and 16 bits,
+gray at 1, 2 and 4 bits (scaled to 8 as libpng expands it), and palette
+images at 1-8 bits (expanded to RGB; a ``tRNS`` chunk is ignored, as
+``cv2.imread`` drops alpha), all five scanline filters.  Write: 8-bit gray
+or RGB (filter 0).  Adam7 interlacing raises ``ValueError`` naming the
+limit.  ``read_rgb8`` returns what ``cv2.imread(path)`` (``IMREAD_COLOR``)
+returns, in RGB order: three 8-bit channels, gray replicated, alpha
+dropped, 16-bit samples cut to their high byte.
 
 Filters 0-2 (none, sub, up) are undone with whole-row NumPy operations;
 average and Paeth carry a dependency from pixel to pixel and run a Python
@@ -73,9 +74,17 @@ def _unfilter_serial(ft: int, line: bytes, prev: bytes,
     return np.frombuffer(bytes(cur), np.uint8)
 
 
+def _unpack_bits(px: np.ndarray, w: int, depth: int) -> np.ndarray:
+    """Rows of packed 1/2/4-bit samples (most significant first) ->
+    ``[H, w]`` uint8 sample values."""
+    bits = np.unpackbits(px, axis=1).reshape(px.shape[0], -1, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8)[:, :w]
+
+
 def read_png(path: str) -> np.ndarray:
     """Decode a PNG: ``[H, W]`` (gray) or ``[H, W, C]``, uint8, or uint16
-    for 16-bit gray."""
+    at 16 bits; palette images come back as ``[H, W, 3]`` RGB."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIG:
@@ -83,6 +92,7 @@ def read_png(path: str) -> np.ndarray:
     pos = 8
     header = None
     idat = []
+    palette = None
     while pos + 8 <= len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
@@ -91,6 +101,8 @@ def read_png(path: str) -> np.ndarray:
             header = struct.unpack(">IIBBBBB", body)
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IEND":
             break
     if header is None or not idat:
@@ -98,16 +110,27 @@ def read_png(path: str) -> np.ndarray:
     w, h, depth, ctype, _, _, interlace = header
     if interlace:
         raise ValueError(f"{path}: interlaced PNG is not supported")
-    if ctype not in _CHANNELS or depth not in (8, 16) \
-            or (depth == 16 and ctype != 0):
-        raise ValueError(
-            f"{path}: PNG colour type {ctype} at {depth} bits is not "
-            "supported (8-bit gray/gray+alpha/RGB/RGBA and 16-bit gray are)")
-    ch = _CHANNELS[ctype]
-    bpp = ch * depth // 8
-    px = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
+    valid = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+             6: (8, 16)}
+    if depth not in valid.get(ctype, ()):
+        raise ValueError(f"{path}: PNG colour type {ctype} at {depth} bits "
+                         "is not defined")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{path}: PNG colour type 3 (palette) without a "
+                         "PLTE chunk")
+    ch = _CHANNELS.get(ctype, 1)
+    bpp = max(1, ch * depth // 8)
+    stride = (w * ch * depth + 7) // 8
+    px = _unfilter(zlib.decompress(b"".join(idat)), h, stride, bpp)
+    if depth < 8:
+        px = _unpack_bits(px, w, depth)
+        if ctype == 0:      # libpng's expand_gray_1_2_4_to_8
+            return px * np.uint8(255 // ((1 << depth) - 1))
+    if ctype == 3:
+        idx = px.reshape(h, w)
+        return palette[np.minimum(idx, len(palette) - 1)]
     if depth == 16:
-        return px.view(">u2").astype(np.uint16).reshape(h, w)
+        px = px.view(">u2").astype(np.uint16)
     return px.reshape(h, w) if ch == 1 else px.reshape(h, w, ch)
 
 

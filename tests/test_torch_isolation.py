@@ -32,6 +32,12 @@ TRAINING_MODULES = ("train.trainers", "train.loop", "cli.run_train",
 # the rest of training: the normal nets' zoo, perceptual losses, metrics
 NORMALS_MODULES = ("models.pix2pix", "models.vgg", "models.perceptual",
                    "utils.metrics", "cli.plot_error")
+# offline data generation: PRT rendering, compositing, GrabCut, the
+# turntable video and their command lines
+GEN_DATA_MODULES = ("data.render", "data.render_dataset", "data.composite",
+                    "data.segmentation", "recon.turntable", "utils.avi",
+                    "utils.imageio", "cli.gen_data", "cli.encode_objs",
+                    "cli.debug_vis")
 
 
 def _banned(name: str) -> bool:
@@ -81,7 +87,7 @@ def test_import_every_module_without_jax():
         assert not bad, bad
         assert len(names) >= 35, names
         for n in {SERVING_MODULES + INFERENCE_MODULES + TRAINING_MODULES
-                  + NORMALS_MODULES!r}:
+                  + NORMALS_MODULES + GEN_DATA_MODULES!r}:
             assert pkg.__name__ + "." + n in names, n
         print(len(names))
     """)
@@ -404,3 +410,76 @@ def test_rest_of_training_refuses_silent_cpu(name):
     with pytest.raises(RuntimeError, match="CUDA"):
         getattr(loop, name)(Options(dataroot=os.path.join(REPO,
                                                           "nonexistent")))
+
+
+def test_data_generation_runs_without_jax(tmp_path):
+    """With JAX, flax, optax, msgpack, cv2, PIL, matplotlib and the JAX
+    package blocked: ``cli.gen_data`` renders a textured OBJ subject with
+    PRT into a tree and composites it, ``cli.debug_vis`` reads it (and
+    skips the plot), GrabCut and ``crop_people`` segment its composite,
+    the turntable ``.avi`` is written and read back, and
+    ``cli.encode_objs`` runs, on the CPU."""
+    code = textwrap.dedent(f"""
+        import sys, os
+        for m in {BANNED!r} + ("matplotlib",):
+            sys.modules[m] = None
+        sys.path.insert(0, {REPO!r})
+        os.chdir({str(tmp_path)!r})
+        import numpy as np
+        from rgbd_pifuhd_tpu_torch.cli import debug_vis, encode_objs, gen_data
+        from rgbd_pifuhd_tpu_torch.data.segmentation import (
+            crop_people, segment_person_grabcut)
+        from rgbd_pifuhd_tpu_torch.data.synthetic import (
+            SUBJECT_CENTER, make_icosphere, normalize_mesh_height)
+        from rgbd_pifuhd_tpu_torch.recon.turntable import (
+            generate_video_from_obj)
+        from rgbd_pifuhd_tpu_torch.utils import avi, jpeg, png
+        os.makedirs("objs")
+        v, f = make_icosphere(2)
+        v = normalize_mesh_height(v) + SUBJECT_CENTER
+        png.write_png("objs/t.png", np.full((8, 8, 3), 150, np.uint8))
+        open("objs/s.mtl", "w").write("newmtl m\\nKd 1 0 0\\nmap_Kd t.png\\n")
+        with open("objs/s_100k.obj", "w") as fh:
+            fh.write("mtllib s.mtl\\nusemtl m\\nvt 0.5 0.5\\n")
+            fh.writelines(f"v {{p[0]}} {{p[1]}} {{p[2]}}\\n" for p in v)
+            fh.writelines(f"f {{a}}/1 {{b}}/1 {{c}}/1\\n" for a, b, c in f + 1)
+        gen_data.main(["--out", "tree", "--obj_dir", "objs", "--use_prt",
+                       "--size", "64", "--load_size", "64"])
+        assert os.path.exists("tree/gen/s_0.png")
+        assert os.path.exists("tree/OBJ/s_100k.obj")
+        debug_vis.main(["--dataroot", "tree", "--ply", "s.ply"])
+        img = png.read_rgb8("tree/gen/s_0.png")[:, :, ::-1]
+        m = png.read_png("tree/MASK/s/0_0_00.png") > 127
+        ys, xs = np.nonzero(m)
+        rect = (xs.min() - 3, ys.min() - 3, xs.max() - xs.min() + 7,
+                ys.max() - ys.min() + 7)
+        seg = segment_person_grabcut(img, rect)
+        assert (seg & m).sum() > 0.9 * m.sum()
+        assert crop_people("tree/gen/s_0.png", rect).shape == img.shape
+        generate_video_from_obj("tree/OBJ/s_100k.obj", "t.avi", 48, 3)
+        frames = avi.read_avi("t.avi")["frames"]
+        assert [jpeg.decode(b).shape for b in frames] == [(48, 48, 3)] * 3
+        encode_objs.main(["objs"])
+        bad = [k for k in sys.modules
+               if (k == "rgbd_pifuhd_tpu" or k.startswith("rgbd_pifuhd_tpu."))
+               and sys.modules[k] is not None]
+        assert not bad, bad
+        print("ok")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and "ok" in r.stdout, r.stderr
+    assert "matplotlib unavailable; skipped plot" in r.stdout
+    assert "rendered {'s': 2} into tree" in r.stdout
+
+
+def test_training_on_generated_tree_refuses_silent_cpu(tmp_path):
+    """``cli.run_train`` (how a generated tree is trained and evaluated)
+    defaults to ``cuda`` and raises without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    from rgbd_pifuhd_tpu_torch.cli import run_train
+
+    for stage in ("coarse", "eval"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_train.main(["--stage", stage, "--dataroot", str(tmp_path)])
