@@ -51,8 +51,23 @@ line each; any failure exits non-zero:
    generated tree, paper widths, bf16), ``[gen_data_eval]`` (``--stage
    eval`` over ``[train]``'s fine checkpoints on the generated tree, with
    its kernel launches) and ``[debug_vis]``;
+5c. multi-device paths on the one card (a shared-card check): a two-shard
+   mesh with the card listed twice — ``[shard_query]`` (flagship-lite's
+   sharded field query at N = 262,144, bf16, bit-equal to its two halves'
+   calls; ``bench_tiny``'s norm-free query equal to the unsharded call)
+   and ``[shard_mesh]`` (flagship-lite ``gen_mesh`` at 512^3 on the mesh:
+   active cells within 1 % of the unsharded run, launches twice the query
+   calls); then, as spawned ranks on ``[train]``'s tree, ``[dist_nccl]``
+   (``shard_train_step`` on one NCCL rank equal bit for bit to the
+   unwrapped paper-width f32 step), ``[dist_train]`` (two gloo ranks, 3
+   fine steps at the paper's widths, f32, global batch 2: losses within
+   rtol 1e-4 of one process, rank 1 writes nothing) and ``[dist_eval]``
+   (``evaluate_checkpoints`` over two gloo ranks against one process,
+   1e-5, each rank's launches);
 7. times (CUDA events) of both kernels and their plain versions at the
-   full-width shapes, beside the card's bound for the same work, and of
+   full-width shapes, beside the card's bound for the same work (and the
+   query's FLOP/s as ``utils/flops`` counts it, with its share of the
+   card's peak), and of
    every launch of the coarse and the fine chain alone (``[time_layers]``)
    beside its bounds and one ``torch.matmul`` of the same product.
 
@@ -201,6 +216,9 @@ def main() -> None:
     # ---- 5. the other inference paths
     paths = {} if kernels_only else other_paths(torch, fq, fm, model, opt,
                                                 dev, esc)
+    # ---- 5b. the same paths sharded over a two-shard mesh on the card
+    if not kernels_only:
+        paths.update(shard_paths(torch, fq, fm, model, opt, dev, esc))
 
     served = {} if kernels_only else served_path()
     mlp_launches = served.get("b", {}).get("fused_point_mlp", 0)
@@ -214,6 +232,9 @@ def main() -> None:
         # trains and evaluates on the card ([train]'s checkpoints)
         paths["gen_data_eval"] = gen_data_phase(torch, fq, fm, smi_line,
                                                 base, ck)
+        # ---- 6e. several processes: NCCL bit for bit, data-parallel
+        # training and evaluation over two gloo ranks on the card
+        paths.update(dist_phases(torch, fq, fm, dev, smi_line, root, ck))
         shutil.rmtree(base, ignore_errors=True)
         served["jpeg_progressive"] = jpeg_progressive(smi_line)
     if "--profile" in sys.argv[1:]:
@@ -1474,6 +1495,362 @@ def other_paths(torch, fq, fm, model, opt, dev, esc) -> dict:
     return counts
 
 
+# ------------------------------------------------------ multi-device paths
+def shard_paths(torch, fq, fm, model, opt, dev, esc) -> dict:
+    """``[shard_query]`` and ``[shard_mesh]``: a two-shard mesh with the
+    card listed twice.  Returns each path's launch counts."""
+    import copy
+
+    from rgbd_pifuhd_tpu_torch.data.synthetic import capsule_subject
+    from rgbd_pifuhd_tpu_torch.models import MultiResPIFu
+    from rgbd_pifuhd_tpu_torch.parallel import make_device_mesh
+    from rgbd_pifuhd_tpu_torch.recon import Reconstructor
+    from rgbd_pifuhd_tpu_torch.utils.checkpoint import (
+        load_checkpoint, load_params, restore_options)
+    from rgbd_pifuhd_tpu_torch.utils.options import Options
+
+    mesh = make_device_mesh(devices=[dev, dev])
+    if mesh.size != 2 or len(set(mesh.local_devices)) != 1:
+        fail(f"[shard_query] mesh {mesh}")
+    counts = {}
+    N = 262144
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+
+    def query_pair(m, o, size):
+        """(sharded, cat of the two halves' plain calls, counts of the
+        sharded call) of one field query at N points inside the capsule's
+        box."""
+        rgbd, calib, cv, _ = capsule_subject(size)
+        one = Reconstructor(m, o, device=dev)
+        two = Reconstructor(m, o, device=dev, mesh=mesh)
+        lo = torch.tensor(cv.min(0), dtype=torch.float32, device=dev)
+        hi = torch.tensor(cv.max(0), dtype=torch.float32, device=dev)
+        pts = lo + (hi - lo) * torch.rand(N, 3, device=dev, generator=gen)
+        with torch.inference_mode():
+            l_f, g_f = one.encode(one._tensor(rgbd[None]),
+                                  one._tensor(rgbd[None]))
+            cal = one._tensor(calib)
+            got, n = _counts(torch, fq, fm,
+                             lambda: two._query(pts, l_f, g_f, cal))
+            halves = torch.cat([one._query(p, l_f, g_f, cal)
+                                for p in pts.split(N // 2)])
+            whole = one._query(pts, l_f, g_f, cal)
+        if two.query_calls != 2:
+            fail(f"[shard_query] {two.query_calls} query calls for 2 shards")
+        return got, halves, whole, n
+
+    # flagship-lite (bf16, GroupNorm): each shard its own statistics
+    got, halves, whole, n = query_pair(model, opt, 512)
+    if not torch.equal(got, halves) or n["fused_gather_mlp"] != 4:
+        fail(f"[shard_query] flagship-lite: sharded vs the halves' calls "
+             f"max |diff| {float((got - halves).abs().max())}, launches {n}")
+    lite = {"bit_equal_to_halves": True, "launches": n,
+            "max_abs_diff_to_unsharded": float((got - whole).abs().max())}
+    # bench_tiny (f32, norm-free): the sharded query is the unsharded one
+    ck = load_checkpoint(CKPT_TINY, device=dev)
+    opt_t, _ = restore_options(Options(), ck)
+    tiny = MultiResPIFu(opt_t.netMR, opt_t.netG, device=dev)
+    load_params(tiny, ck["params"])
+    got, halves, whole, n = query_pair(tiny.eval(), opt_t, 128)
+    diff = float((got - whole).abs().max())
+    if diff > TOL_F32 or n["fused_point_mlp"] != 2 or \
+            n["fused_gather_mlp"] != 2:
+        fail(f"[shard_query] bench_tiny: sharded vs unsharded max |diff| "
+             f"{diff}, launches {n}")
+    phase("shard_query", json.dumps({
+        "mesh": repr(mesh), "points": N, "flagship_lite_bf16": lite,
+        "bench_tiny_f32": {"bit_equal_to_unsharded": bool(torch.equal(
+            got, whole)), "max_abs_diff_to_unsharded": diff,
+            "bit_equal_to_halves": bool(torch.equal(got, halves)),
+            "launches": n}}))
+    counts["shard_query"] = {k: lite["launches"][k] + n[k] for k in n}
+    del tiny, ck
+
+    # ---- [shard_mesh]: flagship-lite gen_mesh at 512^3 on the mesh
+    rgbd, calib, cv, _ = capsule_subject(512)
+    data = {"img": rgbd[None], "img_512": rgbd[None], "calib": calib}
+    path = os.path.join(OUT_DIR, "shard.obj")
+    runs = {}
+    for label, m in (("one", None), ("two", mesh)):
+        r = Reconstructor(model, opt, device=dev, mesh=m)
+        r._esc_budgets = copy.deepcopy(esc)
+        for k in range(1 if m is None else 2):
+            out, n = _counts(torch, fq, fm, lambda: r.gen_mesh(
+                data, path, resolution=512))
+            _check_mesh(f"[shard_mesh] {label} run {k}", out, cv)
+            if n["fused_gather_mlp"] != 2 * out["query_calls"]:
+                fail(f"[shard_mesh] {label}: launches {n} for "
+                     f"{out['query_calls']} query calls (want 2 each)")
+            runs.setdefault(label, []).append((out, n))
+    one, (two, n) = runs["one"][0][0], runs["two"][-1]
+    a1, a2 = one["grid_diag"]["n_active"], two["grid_diag"]["n_active"]
+    # flagship-lite's surface reaches past the capsule (the main path's
+    # bbox): the sharded mesh is held to the unsharded mesh's box, plus 1 %
+    # of its extent (per-shard statistics move a few cells)
+    lo, hi = two["verts"].min(0), two["verts"].max(0)
+    lo1, hi1 = one["verts"].min(0), one["verts"].max(0)
+    pad = 0.01 * (hi1 - lo1)
+    if abs(a2 - a1) > 0.01 * a1 or (lo < lo1 - pad).any() or \
+            (hi > hi1 + pad).any():
+        fail(f"[shard_mesh] active cells {a2} vs {a1} unsharded; bbox "
+             f"{lo}..{hi} vs the unsharded {lo1}..{hi1}")
+    phase("shard_mesh", json.dumps({
+        "secs_runs": [round(o["secs"], 4) for o, _ in runs["two"]],
+        "unsharded_secs": round(one["secs"], 4),
+        "active_cells": {"sharded": a2, "unsharded": a1},
+        "verts": {"sharded": len(two["verts"]),
+                  "unsharded": len(one["verts"])},
+        "bbox": {"sharded": [lo.round(3).tolist(), hi.round(3).tolist()],
+                 "unsharded": [lo1.round(3).tolist(), hi1.round(3).tolist()],
+                 "subject": [cv.min(0).round(3).tolist(),
+                             cv.max(0).round(3).tolist()]},
+        "query_calls": two["query_calls"], "launches": n,
+        "points_queried": two["points_queried"],
+        "host_secs": two["host_secs"]}))
+    counts["shard_mesh"] = n
+    os.remove(path)
+    os.remove(path[:-4] + ".png")
+    return counts
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dist_child(kind: str, rank: int, world: int, port: int, out_path: str,
+                args: dict) -> None:
+    """One rank of ``[dist_nccl]`` / ``[dist_train]`` / ``[dist_eval]``, a
+    process of its own (spawned): it joins the group, runs its part
+    through the port's API, writes its result as JSON and leaves the
+    group."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+
+    from rgbd_pifuhd_tpu_torch.ops import fused_query as fq
+    from rgbd_pifuhd_tpu_torch.parallel import (
+        initialize_distributed, make_device_mesh, process_device)
+    from rgbd_pifuhd_tpu_torch.train import loop
+    from rgbd_pifuhd_tpu_torch.utils.options import parse_options
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    if kind == "nccl":      # one rank: world size 1 over NCCL
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=1, rank=0)
+    elif not initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                    backend="gloo", device="cuda"):
+        raise RuntimeError("no process group")
+    try:
+        dev = process_device("cuda")
+        mesh = make_device_mesh(devices=[dev])
+        if kind == "nccl":
+            res = _nccl_step_check(torch, dev, mesh, args)
+        elif kind == "train":
+            os.chdir(args["cwd"][rank])
+            opt = parse_options(args["argv"] + ["--checkpoints_path",
+                                                args["ck"][rank]])
+            loop.train_fine(opt, max_steps=3, device=dev, mesh=mesh)
+            res = {}
+        else:
+            fq.fused_gather_mlp.launches = 0
+            err = loop.evaluate_checkpoints(parse_options(args["argv"]),
+                                            device=dev, mesh=mesh)
+            res = {"err": err, "launches": fq.fused_gather_mlp.launches}
+        res["backend"] = dist.get_backend()
+        res["world"] = dist.get_world_size()
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as fh:
+        json.dump(res, fh)
+
+
+def _nccl_step_check(torch, dev, mesh, args) -> dict:
+    """A paper-width fine step (f32, TF32 off, deterministic algorithms)
+    unwrapped, through ``shard_train_step`` on the one-rank NCCL mesh, and
+    unwrapped again, from the same parameters and batch: the loss and
+    every parameter after the step, bit for bit."""
+    from rgbd_pifuhd_tpu_torch.data.datasets import TrainDataset
+    from rgbd_pifuhd_tpu_torch.train import loop
+    from rgbd_pifuhd_tpu_torch.train.trainers import (
+        make_fine_train_step, make_optimizer, shard_train_step)
+    from rgbd_pifuhd_tpu_torch.utils.options import parse_options
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    opt = parse_options(args["argv"])
+    batch = loop._to_device(loop.collate_fine(
+        [TrainDataset(opt, seed=opt.seed)[0]]), dev)
+    model = loop.build_multires(opt, dev)
+    loop.init_multires_params(opt, model)
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = []
+    for wrapped in (False, True, False):
+        model.load_state_dict(state0)
+        step = make_fine_train_step(model, make_optimizer(
+            opt.optimizer, opt.learning_rate, model.parameters()))
+        if wrapped:
+            step = shard_train_step(step, mesh)
+        t0 = time.time()
+        loss = float(step(batch)["loss"])     # waits for the step
+        runs.append((loss, torch.cat([p.detach().reshape(-1)
+                                      for p in model.parameters()]),
+                     time.time() - t0))
+
+    def same(a, b):
+        return a[0] == b[0] and bool(torch.equal(a[1], b[1]))
+
+    a, b, c = runs
+    return {"loss": a[0], "bit_equal": same(a, b),
+            "deterministic": same(a, c),
+            "max_abs_param_diff": float((a[1] - b[1]).abs().max()),
+            "params": int(a[1].numel()),
+            "step_s": [round(r[2], 4) for r in runs]}
+
+
+def _run_ranks(kind: str, world: int, args: dict, timeout: float = 300):
+    """``world`` spawned ranks of ``_dist_child``; their JSON results.
+    Every rank is stopped before this returns; any failure fails."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = _free_port()
+    d = os.path.join(OUT_DIR, "dist")
+    os.makedirs(d, exist_ok=True)
+    outs = [os.path.join(d, f"{kind}_{r}.json") for r in range(world)]
+    for o in outs:
+        if os.path.exists(o):
+            os.remove(o)
+    procs = [ctx.Process(target=_dist_child,
+                         args=(kind, r, world, port, outs[r], args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout
+    for p in procs:
+        p.join(max(deadline - time.time(), 1))
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            p.join(30)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        fail(f"[dist_{kind}] rank exit codes {codes}")
+    res = []
+    for o in outs:
+        with open(o) as fh:
+            res.append(json.load(fh))
+    return res
+
+
+def dist_phases(torch, fq, fm, dev, smi_line, root, ck) -> dict:
+    """``[dist_nccl]``, ``[dist_train]`` and ``[dist_eval]`` on ``[train]``'s
+    tree and checkpoints.  Returns the evaluation's launches per rank."""
+    import numpy as np
+
+    from rgbd_pifuhd_tpu_torch.parallel import make_device_mesh
+    from rgbd_pifuhd_tpu_torch.train import loop
+    from rgbd_pifuhd_tpu_torch.utils.logging import load_error_history
+    from rgbd_pifuhd_tpu_torch.utils.options import parse_options
+
+    torch.cuda.empty_cache()
+    base = os.path.join(OUT_DIR, "dist")
+    shutil.rmtree(base, ignore_errors=True)
+    card = {"card": smi_line}
+    fine = ["--dataroot", root, "--num_sample_inout", "4096", "--sigma", "8",
+            "--freq_save", "1000"]
+    # the step's paper widths; the normal nets (frozen inputs of the fine
+    # stage, 360 M parameters to draw, broadcast and write) stay off
+    no_nml = ["--no_front_normal", "--no_back_normal"]
+
+    # ---- [dist_nccl]: shard_train_step on one NCCL rank, bit for bit
+    t0 = time.time()
+    (r,) = _run_ranks("nccl", 1, {"argv": fine + no_nml + ["--name",
+                                                            "nccl"]})
+    if not (r["bit_equal"] and r["deterministic"]) or r["backend"] != "nccl":
+        fail(f"[dist_nccl] {r}")
+    phase("dist_nccl", json.dumps({**card, **r,
+                                   "widths": "paper, f32, no normal nets",
+                                   "secs": round(time.time() - t0, 2)}))
+
+    # ---- [dist_train]: two gloo ranks on the card against one process
+    argv = fine + no_nml + ["--name", "dist", "--batch_size", "2",
+                            "--num_epoch", "3"]
+    cwd = [os.path.join(base, f"rank{k}") for k in range(2)]
+    cks = [os.path.join(base, f"ck{k}") for k in range(2)]
+    for c in cwd + cks:
+        os.makedirs(c)
+    t0 = time.time()
+    _run_ranks("train", 2, {"argv": argv, "cwd": cwd, "ck": cks})
+    two_s = time.time() - t0
+    ref = os.path.join(base, "one")
+    os.makedirs(ref)
+    here = os.getcwd()
+    os.chdir(ref)
+    t0 = time.time()
+    try:
+        loop.train_fine(parse_options(argv + ["--checkpoints_path", ref]),
+                        max_steps=3, device=dev,
+                        mesh=make_device_mesh(devices=[dev]))
+    finally:
+        os.chdir(here)
+    one_s = time.time() - t0
+    torch.cuda.empty_cache()
+    two = np.asarray(load_error_history(os.path.join(
+        cwd[0], "train_result"), "dist_netMR")[-1], np.float64)
+    one = np.asarray(load_error_history(os.path.join(
+        ref, "train_result"), "dist_netMR")[-1], np.float64)
+    rank1 = [os.path.join(p, f) for top in (cwd[1], cks[1])
+             for p, _, fs in os.walk(top) for f in fs]
+    written = sorted(os.listdir(cks[0]))
+    if len(two) != 3 or len(one) != 3 or not np.allclose(
+            two, one, rtol=1e-4, atol=0) or rank1 or not written:
+        fail(f"[dist_train] losses {list(two)} vs one process {list(one)}; "
+             f"rank 1 wrote {rank1}; rank 0 wrote {written}")
+    phase("dist_train", json.dumps({
+        **card, "ranks": 2, "backend": "gloo", "device": "cuda:0 (both)",
+        "widths": "paper, f32, no normal nets", "global_batch": 2,
+        "losses": two.tolist(), "one_process_losses": one.tolist(),
+        "max_rel_diff": float(np.max(np.abs(two - one) / np.abs(one))),
+        "rank0_wrote": written, "rank1_wrote": rank1,
+        "two_rank_s": round(two_s, 2), "one_process_s": round(one_s, 2)}))
+    shutil.rmtree(base, ignore_errors=True)
+
+    # ---- [dist_eval]: evaluate_checkpoints over two gloo ranks
+    argv = fine + ["--name", "smoke", "--checkpoints_path", ck,
+                   "--compute_dtype", "bfloat16"]
+    t0 = time.time()
+    ranks = _run_ranks("eval", 2, {"argv": argv})
+    two_s = time.time() - t0
+    t0 = time.time()
+    one, n1 = _counts(torch, fq, fm, lambda: loop.evaluate_checkpoints(
+        parse_options(argv), device=dev, mesh=make_device_mesh(
+            devices=[dev])))
+    one_s = time.time() - t0
+    errs = [float(r["err"]["0"]) for r in ranks]
+    if abs(errs[0] - one[0]) > 1e-5 or errs[0] != errs[1] or \
+            min(r["launches"] for r in ranks) == 0:
+        fail(f"[dist_eval] Err(occ:fine) {errs} vs one process {one[0]}, "
+             f"launches {[r['launches'] for r in ranks]}")
+    phase("dist_eval", json.dumps({
+        **card, "ranks": 2, "backend": "gloo", "err_occ_fine": errs[0],
+        "one_process_err": one[0], "abs_diff": abs(errs[0] - one[0]),
+        "launches_per_rank": [r["launches"] for r in ranks],
+        "one_process_launches": n1["fused_gather_mlp"],
+        "two_rank_s": round(two_s, 2), "one_process_s": round(one_s, 2)}))
+    return {f"dist_eval_rank{k}": {"fused_gather_mlp": r["launches"],
+                                   "fused_point_mlp": 0, "gather_concat": 0}
+            for k, r in enumerate(ranks)}
+
+
 # ------------------------------------------------------------ served path
 def _write_subject(root: str, stem: str, size: int, **shape) -> dict:
     """One request subject as PNG files: ``<stem>.png``,
@@ -1847,6 +2224,9 @@ def _event_ms(torch, fn, reps: int) -> float:
 def time_kernel(torch, fq, model, dev) -> dict:
     """One field query at the phase-3 band size (N = 262144): the coarse
     call then the fine call, bf16, GroupNorm over the whole call."""
+    from rgbd_pifuhd_tpu_torch.utils.flops import (
+        device_peak_flops, two_level_query_flops_per_point)
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     N = 262144
@@ -1880,6 +2260,11 @@ def time_kernel(torch, fq, model, dev) -> dict:
     ms = _event_ms(torch, kernel, 10)
     plain_ms = _event_ms(torch, plain, 3)
     ms2 = _event_ms(torch, kernel, 10)
+    # the query's work as utils/flops counts it (the MLPs' products), and
+    # its share of the card's published dense bf16 peak
+    q_flop = two_level_query_flops_per_point(model.cfg, model.netG.cfg) * N
+    q_rate = q_flop / (min(ms, ms2) * 1e-3)
+    peak = device_peak_flops(dev)
     bound_ops = flop / PEAK_BF16 * 1e3
     bound_bytes = byts / HBM_BPS * 1e3
     res = {"ms": round(min(ms, ms2), 4), "plain_ms": round(plain_ms, 4),
@@ -1893,6 +2278,9 @@ def time_kernel(torch, fq, model, dev) -> dict:
         "tflops": round(flop / (min(ms, ms2) * 1e-3) / 1e12, 2),
         "bound_ops_ms": round(bound_ops, 4),
         "bound_bytes_ms": round(bound_bytes, 4), **res,
+        "utils_flops": q_flop, "achieved_flop_per_s": q_rate,
+        "peak_flop_per_s": peak,
+        "share_of_peak": None if peak is None else round(q_rate / peak, 4),
         "library": "none: no single PyTorch call computes this function"}))
     return res
 

@@ -1,15 +1,19 @@
 """What both entry points share: loading a checkpoint (the JAX package's
-msgpack, or a reference ``.pth``) into a ``Reconstructor``, reading a
-subject, naming its mesh file, and the kernel launch counters they
-report."""
+msgpack, or a reference ``.pth``) into a ``Reconstructor`` (sharded over
+every local GPU when there are several, as the JAX CLIs shard over
+``jax.device_count() > 1``), reading a subject, naming its mesh file, and
+the kernel launch counters they report."""
 
 from __future__ import annotations
 
 import os
 
+import torch
+
 from ..models.multires import MultiResPIFu
 from ..ops.fused_mlp import fused_point_mlp
 from ..ops.fused_query import fused_gather_mlp, gather_concat
+from ..parallel import make_device_mesh
 from ..recon.pipeline import Reconstructor
 from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
@@ -19,6 +23,14 @@ from ..utils.torch_import import reconcile_with_model
 
 def latest_path(checkpoints_path: str, name: str) -> str:
     return os.path.join(checkpoints_path, f"{name}_train_latest")
+
+
+def local_mesh(dev: torch.device):
+    """A mesh over every local GPU when ``dev`` is CUDA and there are
+    several, else None."""
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        return make_device_mesh()
+    return None
 
 
 def load_reconstructor(opt: Options, device: str, full_opts: bool = False):
@@ -51,7 +63,8 @@ def load_reconstructor(opt: Options, device: str, full_opts: bool = False):
         # port's 6-channel input
         sd = reconcile_with_model(sd, model)
     model.load_state_dict(sd, strict=True)
-    return Reconstructor(model, opt_model, device=dev), opt_model, path
+    return (Reconstructor(model, opt_model, device=dev,
+                          mesh=local_mesh(dev)), opt_model, path)
 
 
 def load_item(dataset, i: int) -> dict:

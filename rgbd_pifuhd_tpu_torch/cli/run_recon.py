@@ -26,7 +26,9 @@ use_color: 0 = fd-normal colours (``gen_mesh``), 1 = image colours, 2 =
 image colours + largest-component cleanup + back inpainting.
 
 The last line printed is ``launches {...}``: the process's kernel launch
-counts.
+counts.  On a host with several GPUs and ``--device cuda`` every field
+query and colour pass is sharded over all of them
+(``cli.common.local_mesh``).
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ import os
 import sys
 
 from ..data.readdata import InferenceDataset
-from .common import launch_counts, load_item, load_reconstructor, mesh_path
+from .common import (launch_counts, load_item, load_reconstructor,
+                     local_mesh, mesh_path)
 
 _ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "assets")
@@ -84,7 +87,8 @@ def _demo_sphere(opt, device):
     dataset = TrainDataset(dopt, load_mesh=False)
     model = MultiResPIFu(opt.netMR, opt.netG, device=dev)
     init_flax(model, torch.Generator().manual_seed(0))
-    return Reconstructor(model, opt, device=dev), dataset
+    return Reconstructor(model, opt, device=dev, mesh=local_mesh(dev)), \
+        dataset
 
 
 def main(argv=None):

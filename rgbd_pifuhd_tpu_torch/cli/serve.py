@@ -24,7 +24,9 @@ a ``{"ready": true}`` line once the model is loaded, per failed request an
 ``{"error": ..., "request": ...}`` line (the server keeps running), and a
 last ``{"quit": true, "launches": {...}}`` line with the process's kernel
 launch counts.  ``--use_color``, ``--mesh_format``, ``--normal_mode``,
-``--octree_levels`` and ``--no_octree`` hold for the whole process.
+``--octree_levels`` and ``--no_octree`` hold for the whole process.  On a
+host with several GPUs and ``--device cuda`` every field query and colour
+pass is sharded over all of them (``cli.common.local_mesh``).
 """
 
 from __future__ import annotations

@@ -14,6 +14,10 @@ and updates the buffers as flax ``BatchNorm(momentum=0.9)`` does: ``ra =
 0.9 ra + 0.1 batch``, the variance biased (``E[x^2] - E[x]^2``).
 ``HGFilter(remat=True)`` recomputes each hourglass in the backward pass
 (``torch.utils.checkpoint``), without updating the statistics twice.
+Inside ``batch_stats_group(group)`` (a data-parallel step,
+``train.trainers.shard_train_step``) the batch's statistics are the mean
+over the group's ranks of each rank's (equal shards), as XLA computes them
+over the global batch.
 
 ``init_flax`` draws the initial parameters as flax's initialisers do: every
 conv / dense / transposed-conv weight from N(0, 0.02), biases 0, norm
@@ -32,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.resize import avg_pool2d, upsample2x_bicubic
 
 _STATS_FROZEN = [False]     # set while a checkpointed hourglass recomputes
+_STATS_GROUP = [None]       # the process group of a data-parallel step
 
 
 @contextlib.contextmanager
@@ -42,6 +47,17 @@ def _stats_frozen(frozen: bool):
         yield
     finally:
         _STATS_FROZEN[0] = prev
+
+
+@contextlib.contextmanager
+def batch_stats_group(group):
+    """Batch norm in training mode reduces its statistics over ``group``."""
+    prev = _STATS_GROUP[0]
+    _STATS_GROUP[0] = group
+    try:
+        yield
+    finally:
+        _STATS_GROUP[0] = prev
 
 
 class Conv(nn.Module):
@@ -119,8 +135,13 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         else:
             flat = x.reshape(-1, x.shape[-1])
-            mean = flat.mean(0)
-            var = torch.clamp((flat * flat).mean(0) - mean * mean, min=0.0)
+            mean, mean2 = flat.mean(0), (flat * flat).mean(0)
+            if _STATS_GROUP[0] is not None:
+                from ..parallel.distributed import all_reduce_mean
+
+                mean, mean2 = all_reduce_mean(torch.stack([mean, mean2]),
+                                              _STATS_GROUP[0])
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
             if not _STATS_FROZEN[0]:
                 m = self.MOMENTUM
                 with torch.no_grad():

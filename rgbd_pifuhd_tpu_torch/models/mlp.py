@@ -60,6 +60,10 @@ class PointMLP(nn.Module):
         self.register_load_state_dict_post_hook(
             lambda m, _keys: m._packed.clear())
 
+    def _apply(self, fn, *args, **kwargs):
+        self._packed.clear()        # the packed copies follow the weights
+        return super()._apply(fn, *args, **kwargs)
+
     def _dense(self, i: int, x: torch.Tensor) -> torch.Tensor:
         lin = getattr(self, f"dense{i}")
         if self.dtype is None:

@@ -25,6 +25,13 @@ through the same kernel, or through ``ops.fused_mlp.fused_point_mlp`` when
 its MLP is norm-free (``models.coarse.query_mlp``).  Host transfers use
 pinned buffers and one CUDA event per transfer, so the host marches and
 writes while the device computes.
+
+With a device ``mesh`` (``parallel``) every field query is sharded over
+its point axis and every colour pass over the 65,536-vertex chunk, one
+call per shard on the shard's device (``parallel.shard_arg_axis``): fd
+normals take GroupNorm's statistics over the shard's four taps, grad
+normals differentiate the shard's own sum, as the JAX package's
+``shard_map`` does.  ``query_calls`` counts one call a shard.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ import torch
 from ..models.multires import MultiResPIFu
 from ..native import load_meshio
 from ..ops import geometry as geom
+from ..parallel import replicate, shard_arg_axis, shard_points_query
+from ..parallel.mesh import canonical
 from ..utils.device import resolve_device
 from ..utils.options import Options
 from ..utils.png import write_png
@@ -147,13 +156,17 @@ def _normalized(nml: torch.Tensor) -> torch.Tensor:
 
 
 class Reconstructor:
-    """Two-level mesh reconstruction on one device.  The model is frozen
+    """Two-level mesh reconstruction on one device, or sharded over a
+    device ``mesh`` of the same device type (the model copied once to each
+    of its devices).  ``sharded_query`` wraps the field query instead of
+    the mesh's ``shard_points_query``.  The model is frozen
     (``requires_grad_(False)``): the ``grad`` normals differentiate the
     field with respect to the points only."""
 
     _COLOR_CHUNK = 65536
 
-    def __init__(self, model: MultiResPIFu, opt: Options, device=None):
+    def __init__(self, model: MultiResPIFu, opt: Options, device=None,
+                 sharded_query=None, mesh=None):
         self.device = resolve_device(device)
         p = next(model.parameters())
         if p.device.type != self.device.type:
@@ -161,6 +174,22 @@ class Reconstructor:
                              f"{self.device}")
         self.model = model.eval().requires_grad_(False)
         self.opt = opt
+        self.mesh = mesh
+        self._replicas: dict = {}
+        self._normals, self._img_colors = self._normals_one, \
+            self._img_colors_one
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a mesh of {mesh.device_type} devices for "
+                                 f"a reconstructor on {self.device}")
+            self._replicas = dict(zip(mesh.local_devices,
+                                      replicate(mesh, self.model)))
+            if sharded_query is None:
+                sharded_query = lambda q: shard_points_query(q, mesh)  # noqa: E731
+            self._normals = shard_arg_axis(self._normals_one, mesh, 0)
+            self._img_colors = shard_arg_axis(self._img_colors_one, mesh, 0)
+        self._query = sharded_query(self._query_one) if sharded_query \
+            else self._query_one
         self._vol_cache: dict[int, np.ndarray] = {}
         self.last_grid_diag: dict | None = None
         self._esc_budgets: dict[int, dict] = {}
@@ -188,11 +217,16 @@ class Reconstructor:
         self.points_queried[self._phase] = (
             self.points_queried.get(self._phase, 0) + n_points)
 
-    def _query(self, world_pts, l_feats, g_feats, calib):
+    def _model_at(self, device):
+        """The model's copy on ``device`` (a mesh's), else the model."""
+        return self._replicas.get(canonical(device), self.model)
+
+    def _query_one(self, world_pts, l_feats, g_feats, calib):
         """[M, 3] world points -> [M] fine occupancy (B1 = B2 = 1)."""
         self._count(world_pts.shape[0])
-        out = self.model.query(l_feats, g_feats, world_pts[None, None],
-                               calib[None, None], calib[None])
+        out = self._model_at(world_pts.device).query(
+            l_feats, g_feats, world_pts[None, None], calib[None, None],
+            calib[None])
         return out.preds[0, :, 0]
 
     def encode(self, img_local: torch.Tensor, img_global: torch.Tensor):
@@ -205,14 +239,16 @@ class Reconstructor:
     def _field_last(self, pts, feats, calib):
         """``[M, 3]`` points -> the fine field of the last stacks, ``[M]``."""
         l_feats, g_feats = feats
-        return self.model.field_last(l_feats, g_feats, pts[None, None],
-                                     calib[None, None], calib[None])[0, :, 0]
+        return self._model_at(pts.device).field_last(
+            l_feats, g_feats, pts[None, None], calib[None, None],
+            calib[None])[0, :, 0]
 
     def _calc_normal(self, verts, feats, calib):
         """``[M, 3]`` points -> fd unit normals ``[M, 3]``."""
         l_feats, g_feats = feats
-        return self.model.calc_normal(l_feats, g_feats, verts[None, None],
-                                      calib[None, None], calib[None])[0]
+        return self._model_at(verts.device).calc_normal(
+            l_feats, g_feats, verts[None, None], calib[None, None],
+            calib[None])[0]
 
     def _no_autograd(self):
         """The context of a whole mesh: ``inference_mode``, except for
@@ -485,13 +521,20 @@ class Reconstructor:
                 self._field_last(pts, feats, calib).sum(), pts)
         return _normalized(-g)
 
+    def _normals_one(self, verts, feats, calib):
+        """uint8 normal colours of ``verts [M, 3]``: fd (one query call of
+        4 taps a vertex) or grad (one query call and its backward)."""
+        grad = getattr(self.opt, "normal_mode", "fd") == "grad"
+        self._count(len(verts) if grad else 4 * len(verts))
+        nml = (self._grad_normals(verts, feats, calib) if grad
+               else self._calc_normal(verts, feats, calib))
+        return _quantize_colors(nml)
+
     def _normals_dispatch(self, vq: np.ndarray, lo, scale, feats, calib):
         """Queue normal colours of u16-quantised verts ``vq [k * 65536,
-        3]``, one 65536-vertex chunk at a time: fd (one query call of 4
-        taps a vertex) or grad (one query call and its backward); returns
-        the ``_ColorJob`` part."""
+        3]``, one 65536-vertex chunk at a time (sharded over the mesh);
+        returns the ``_ColorJob`` part."""
         chunk = self._COLOR_CHUNK
-        grad = getattr(self.opt, "normal_mode", "fd") == "grad"
         vq_d = self._upload(vq.view(np.int16)).to(torch.int32) & 0xFFFF
         lo_d, scale_d = self._upload(lo), self._upload(scale)
         cols = []
@@ -499,10 +542,7 @@ class Reconstructor:
             verts = _dequantize_verts(vq_d[j * chunk:(j + 1) * chunk],
                                       lo_d, scale_d)
             self._phase = "color"
-            self._count(chunk if grad else 4 * chunk)
-            nml = (self._grad_normals(verts, feats, calib) if grad
-                   else self._calc_normal(verts, feats, calib))
-            cols.append(_quantize_colors(nml))
+            cols.append(self._normals(verts, feats, calib))
         return _to_host(torch.cat(cols))
 
     def dispatch_block(self, block: np.ndarray, k: int, feats, calib):
@@ -536,20 +576,25 @@ class Reconstructor:
             lambda vq, lo, sc: self._normals_dispatch(vq, lo, sc, feats,
                                                       calib), verts)
 
+    @staticmethod
+    def _img_colors_one(verts, image, calib):
+        """uint8 colours of ``verts [M, 3]``: project, sample the RGB
+        channels of ``image [H, W, C]`` bilinearly, quantise."""
+        xyz = geom.orthogonal(verts[None], calib[None])
+        return _quantize_colors(
+            geom.index(image[None], xyz[..., :2])[0][:, :3])
+
     def _img_color_dispatch(self, vq: np.ndarray, lo, scale,
                             image: torch.Tensor, calib: torch.Tensor):
-        """Queue image colours of u16-quantised verts: project, sample the
-        RGB channels of ``image [H, W, C]`` bilinearly, quantise."""
+        """Queue image colours of u16-quantised verts, one 65536-vertex
+        chunk at a time (sharded over the mesh)."""
         chunk = self._COLOR_CHUNK
         vq_d = self._upload(vq.view(np.int16)).to(torch.int32) & 0xFFFF
         lo_d, scale_d = self._upload(lo), self._upload(scale)
-        cols = []
-        for j in range(len(vq) // chunk):
-            verts = _dequantize_verts(vq_d[j * chunk:(j + 1) * chunk],
-                                      lo_d, scale_d)
-            xyz = geom.orthogonal(verts[None], calib[None])
-            cols.append(_quantize_colors(
-                geom.index(image[None], xyz[..., :2])[0][:, :3]))
+        cols = [self._img_colors(_dequantize_verts(
+                    vq_d[j * chunk:(j + 1) * chunk], lo_d, scale_d),
+                    image, calib)
+                for j in range(len(vq) // chunk)]
         return _to_host(torch.cat(cols))
 
     def color_by_image(self, verts: np.ndarray, image,
@@ -987,14 +1032,16 @@ class CoarseReconstructor(Reconstructor):
     def encode(self, img_local, img_global):
         return None, self.model.filter(img_global, last_only=True)
 
-    def _query(self, world_pts, l_feats, g_feats, calib):
+    def _query_one(self, world_pts, l_feats, g_feats, calib):
         """[M, 3] world points -> [M] occupancy of the last stack."""
         self._count(world_pts.shape[0])
-        return self.model.query(g_feats, world_pts[None],
-                                calib[None]).preds[-1, 0, :, 0]
+        return self._model_at(world_pts.device).query(
+            g_feats, world_pts[None], calib[None]).preds[-1, 0, :, 0]
 
     def _field_last(self, pts, feats, calib):
-        return self.model.field_last(feats[1], pts[None], calib[None])[0, :, 0]
+        return self._model_at(pts.device).field_last(
+            feats[1], pts[None], calib[None])[0, :, 0]
 
     def _calc_normal(self, verts, feats, calib):
-        return self.model.calc_normal(feats[1], verts[None], calib[None])[0]
+        return self._model_at(verts.device).calc_normal(
+            feats[1], verts[None], calib[None])[0]

@@ -18,6 +18,15 @@ prefetched in order by background threads (``data.prefetch``); each goes
 to the device once per step, and the loss comes back to the host once per
 step.  Checkpoints keep the JAX package's names and layout
 (``utils.checkpoint``); per-epoch losses go to ``train_result/<name>/``.
+
+With a device ``mesh`` over several processes (one device each,
+``parallel``) ``train_fine``, ``pretrain_coarse`` and ``pretrain_normals``
+train data-parallel: ``opt.batch_size`` stays the global batch, every rank
+reads the same seeded batch and keeps its rows (``shard_host_batch``), the
+step is ``shard_train_step``'s; ``evaluate_checkpoints`` shards its
+batches the same way.  Only the primary process writes checkpoints, logs,
+montages and evaluation arrays.  ``train_alternating`` takes no mesh, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ from ..models.coarse import CoarsePIFu
 from ..models.multires import MultiResPIFu
 from ..models.pix2pix import GlobalGenerator
 from ..models.vgg import VGG16Features, make_perceptual_loss
+from ..parallel.distributed import (all_reduce_sum_, is_primary,
+                                    shard_host_batch)
 from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.logging import TrainLogger
@@ -46,6 +57,7 @@ from .trainers import (
     make_lr_schedule,
     make_normal_train_step,
     make_optimizer,
+    shard_train_step,
 )
 
 
@@ -142,27 +154,37 @@ def _load_netG(model: MultiResPIFu, path: str) -> None:
 
 
 def _run(opt: Options, dataset, model, step_fn, sched, collate, logger,
-         max_steps, save) -> None:
-    """The epoch loop shared by both stages."""
+         max_steps, save, mesh=None) -> None:
+    """The epoch loop shared by the stages; with a ``mesh`` data-parallel,
+    and only the primary process logs and saves."""
     dev = next(model.parameters()).device
+    if mesh is not None:
+        step_fn = shard_train_step(step_fn, mesh)
+    primary = is_primary()
+    one_thread = {} if mesh is None else {"num_threads": 1}
     steps_per_epoch = max(len(dataset) // opt.batch_size, 1)
     global_step = 0
     for epoch in range(opt.num_epoch):
+        # one reader thread under a mesh: the items draw from one shared
+        # generator, so only one thread gives every rank the same batch
+        # (and a one-process mesh the same batches)
         batches = iter(_batches(dataset, opt.batch_size, collate,
-                                opt.seed + epoch))
+                                opt.seed + epoch, **one_thread))
         while max_steps is None or global_step < max_steps:
             t0 = time.perf_counter()
             with logger.timer.phase("data"):
                 batch = next(batches, None)
             if batch is None:
                 break
+            if mesh is not None:    # this process's rows
+                batch = shard_host_batch(mesh, batch)
             t1 = time.perf_counter()
             with logger.timer.phase("net"):
                 metrics = step_fn(_to_device(batch, dev))
                 loss = float(metrics["loss"])
             t2 = time.perf_counter()
             logger.record(loss)
-            if global_step % opt.freq_show == 0:
+            if global_step % opt.freq_show == 0 and primary:
                 # this step's own times beside the running means
                 logger.log_iter(epoch, global_step,
                                 steps_per_epoch * opt.num_epoch, loss,
@@ -170,15 +192,16 @@ def _run(opt: Options, dataset, model, step_fn, sched, collate, logger,
                                 f"stepD: {(t1 - t0) * 1e3:.3f}ms "
                                 f"stepN: {(t2 - t1) * 1e3:.3f}ms")
             global_step += 1
-        logger.save_epoch_errors(epoch)
-        save(epoch)
+        if primary:
+            logger.save_epoch_errors(epoch)
+            save(epoch)
         if max_steps is not None and global_step >= max_steps:
             break
 
 
 def train_fine(opt: Options, max_steps: int | None = None,
                use_crop: bool = False, params: dict | None = None,
-               device=None) -> MultiResPIFu:
+               device=None, mesh=None) -> MultiResPIFu:
     """netMR training; ``params`` (a flax variables tree) replaces the
     initialisation and the checkpoint loads.  Returns the model."""
     dev = resolve_device(device)
@@ -221,13 +244,14 @@ def train_fine(opt: Options, max_steps: int | None = None,
                 tree, opt, opt_netG=opt, epoch=epoch)
 
     _run(opt, dataset, model, step_fn, sched, collate_fine,
-         TrainLogger(f"{opt.name}_netMR"), max_steps, save)
+         TrainLogger(f"{opt.name}_netMR"), max_steps, save, mesh)
     return model
 
 
 # ----------------------------------------------------------- coarse pretrain
 def pretrain_coarse(opt: Options, max_steps: int | None = None,
-                    params: dict | None = None, device=None) -> CoarsePIFu:
+                    params: dict | None = None, device=None,
+                    mesh=None) -> CoarsePIFu:
     """netG pretraining; returns the model."""
     dev = resolve_device(device)
     dataset = TrainDataset(opt, seed=opt.seed)
@@ -256,7 +280,7 @@ def pretrain_coarse(opt: Options, max_steps: int | None = None,
             ckpt.params_to_flax(model), opt, epoch=epoch)
 
     _run(opt, dataset, model, step_fn, sched, collate_coarse,
-         TrainLogger(f"{opt.name}_netG"), max_steps, save)
+         TrainLogger(f"{opt.name}_netG"), max_steps, save, mesh)
     return model
 
 
@@ -293,7 +317,8 @@ def select_perceptual(use_vgg: bool | str = "auto", seed: int = 0,
 
 def pretrain_normals(opt: Options, coarse_params: dict | None = None,
                      max_steps: int | None = None,
-                     use_vgg: bool | str = "auto", device=None) -> dict:
+                     use_vgg: bool | str = "auto", device=None,
+                     mesh=None) -> dict:
     """Train netF, then netB.  Given ``coarse_params`` (a coarse model's
     flax tree) the nets start from its ``netF`` / ``netB``, the tree comes
     back with them replaced and is written as ``<name>_netG``'s latest
@@ -339,15 +364,16 @@ def pretrain_normals(opt: Options, coarse_params: dict | None = None,
         # the JAX loop tests max_steps after a step: 0 still runs one
         _run(opt, dataset, gen, step_fn, lambda _c: opt.learning_rate,
              collate, TrainLogger(f"{opt.name}_{net_name}"),
-             None if max_steps is None else max(max_steps, 1), save)
+             None if max_steps is None else max(max_steps, 1), save, mesh)
         results[net_name] = ckpt.params_to_flax(gen)
         if out is not None:
             out["params"][net_name] = results[net_name]["params"]
 
     if out is not None:
-        ckpt.save_checkpoint(
-            ckpt.latest_path(opt.checkpoints_path, f"{opt.name}_netG"),
-            out, opt, epoch=0)
+        if is_primary():
+            ckpt.save_checkpoint(
+                ckpt.latest_path(opt.checkpoints_path, f"{opt.name}_netG"),
+                out, opt, epoch=0)
         return out
     return results
 
@@ -408,18 +434,33 @@ def train_alternating(opt: Options, cycles: int = 10, nml_epochs: int = 5,
 
 # ------------------------------------------------------------------ eval
 def evaluate_checkpoints(opt: Options, max_items: int | None = None,
-                         device=None) -> dict:
+                         device=None, mesh=None) -> dict:
     """The fine loss (``occ_fine``, ``train=False``: the queries go through
     the kernels on the card) of ``<name>_train_epoch_<e>`` for ``e = 0,
     freq_save, 2 freq_save, ...`` until one is missing, over the evaluation
     set: every item once, the last batch shrunk, the item-weighted mean.
     Each epoch's batch losses go to ``<checkpoints_path>/<name>_eval_epoch_
-    <e>.npy``.  Returns ``{epoch: loss}``."""
+    <e>.npy``.  Returns ``{epoch: loss}``.
+
+    With a ``mesh`` (the JAX package's rules): a dataset of at least
+    ``mesh.size`` items is evaluated in batches of ``max(batch_size,
+    mesh.size)`` rounded down to a multiple of ``mesh.size``, each rank
+    taking its rows and the batch's loss the mean over the ranks; a batch
+    that does not divide (the tail), and a dataset smaller than the mesh,
+    run unsharded on every rank.  Under a mesh the reader runs one thread:
+    its items draw from one shared generator, so every rank (and a
+    one-process mesh) sees the same samples."""
     dev = resolve_device(device)
     dataset = EvalDataset(opt)
     model = build_multires(opt, dev)
     n = min(len(dataset), max_items or len(dataset))
-    batch_size = max(min(opt.batch_size, n), 1)
+    sharded = mesh is not None and mesh.group is not None \
+        and n >= mesh.size
+    if sharded:
+        batch_size = max(opt.batch_size, mesh.size)
+        batch_size -= batch_size % mesh.size
+    else:
+        batch_size = max(min(opt.batch_size, n), 1)
     results = {}
     epoch = 0
     while True:
@@ -430,24 +471,35 @@ def evaluate_checkpoints(opt: Options, max_items: int | None = None,
         errs, weights = [], []
         count = 0
         for batch in _batches(dataset, batch_size, collate_fine, seed=0,
-                              shuffle=False, drop_last=False):
+                              shuffle=False, drop_last=False,
+                              **({} if mesh is None else
+                                 {"num_threads": 1})):
             if count >= n:
                 break
             bsz = min(int(batch["labels"].shape[0]), n - count)
-            batch = {k: v[:bsz] for k, v in _to_device(batch, dev).items()}
+            batch = {k: v[:bsz] for k, v in batch.items()}
+            split = sharded and bsz % mesh.size == 0
+            if split:       # this process's rows
+                batch = shard_host_batch(mesh, batch)
+            batch = _to_device(batch, dev)
             with torch.no_grad():
                 err, _ = model(batch["images_local"],
                                batch["images_global"], batch["points"],
                                batch["calib_local"], batch["calib_global"],
                                batch["labels"], train=False)
-            errs.append(float(err["occ_fine"]))
+            err = err["occ_fine"]
+            if split:
+                err = all_reduce_sum_(err.reshape(1), mesh.group) \
+                    / mesh.world
+            errs.append(float(err))
             weights.append(bsz)
             count += bsz
         if not errs:
             raise RuntimeError(f"eval dataset is empty ({opt.dataroot})")
         results[epoch] = float(np.average(errs, weights=weights))
-        np.save(os.path.join(opt.checkpoints_path,
-                             f"{opt.name}_eval_epoch_{epoch}.npy"),
-                np.asarray(errs))
+        if is_primary():
+            np.save(os.path.join(opt.checkpoints_path,
+                                 f"{opt.name}_eval_epoch_{epoch}.npy"),
+                    np.asarray(errs))
         epoch += opt.freq_save
     return results

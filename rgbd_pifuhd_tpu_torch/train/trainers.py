@@ -19,7 +19,10 @@
   multiscale discriminator on ``(images, map)``, in the JAX step's order:
   the generator's loss against the discriminator as it was before the
   step, the generator updated first, then the discriminator on the real
-  map and on the generator's output from before its update, detached.
+  map and on the generator's output from before its update, detached;
+- ``shard_train_step``: a step of the first three kinds, data-parallel
+  over a device mesh's processes: equal to the one-process step on the
+  global batch, as the JAX package's ``jit`` with a sharded batch is.
 """
 
 from __future__ import annotations
@@ -135,6 +138,7 @@ def make_fine_train_step(model, opt: torch.optim.Optimizer) -> Callable:
         return {"loss": total.detach(),
                 **{k: v.detach() for k, v in err.items()}}
 
+    step.model, step.optimizer = model, opt
     return step
 
 
@@ -151,6 +155,7 @@ def make_coarse_train_step(model, opt: torch.optim.Optimizer,
         opt.step()
         return {"loss": err.detach()}
 
+    step.model, step.optimizer = model, opt
     return step
 
 
@@ -170,6 +175,62 @@ def make_normal_train_step(gen, opt: torch.optim.Optimizer,
         loss.backward()
         opt.step()
         return {"loss": loss.detach()}
+
+    step.model, step.optimizer = gen, opt
+    return step
+
+
+def shard_train_step(step_fn: Callable, mesh) -> Callable:
+    """Data parallelism over ``mesh``'s processes (one device each): the
+    wrapped step takes this process's equal share of the global batch
+    (``parallel.shard_host_batch``) and computes the one-process step on
+    the global batch — the gradients averaged over the ranks before the
+    optimiser's update (which then runs the same on every rank), batch
+    norm's statistics reduced over the ranks (``batch_stats_group``), the
+    metrics the global means.  The parameters and buffers start as rank
+    0's (a broadcast, here).  ``step_fn`` is one of this module's steps
+    (its ``model`` and ``optimizer``); a mesh without a process group
+    returns it unchanged."""
+    from ..models.blocks import batch_stats_group
+    from ..parallel.distributed import all_reduce_sum_, broadcast_
+
+    if len(mesh.local_devices) != 1:
+        raise ValueError("data-parallel training runs one process per "
+                         f"device; this process holds {mesh.local_devices}")
+    group, world = mesh.group, mesh.world
+    if group is None:
+        return step_fn
+    opt = step_fn.optimizer
+    with torch.no_grad():
+        for t in list(step_fn.model.parameters()) + list(
+                step_fn.model.buffers()):
+            broadcast_(t, 0, group)
+    params = [p for g in opt.param_groups for p in g["params"]]
+
+    def average_grads(_opt, _args, _kwargs):
+        by_dtype: dict = {}
+        for p in params:
+            if p.grad is not None:
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            all_reduce_sum_(flat, group).div_(world)
+            off = 0
+            for g in grads:
+                g.copy_(flat[off:off + g.numel()].view_as(g))
+                off += g.numel()
+
+    def step(batch: dict) -> dict:
+        hook = opt.register_step_pre_hook(average_grads)
+        try:
+            with batch_stats_group(group):
+                metrics = step_fn(batch)
+        finally:
+            hook.remove()
+        keys = sorted(metrics)
+        vals = torch.stack([metrics[k].float() for k in keys])
+        all_reduce_sum_(vals, group).div_(world)
+        return {k: vals[i].to(metrics[k].dtype) for i, k in enumerate(keys)}
 
     return step
 

@@ -38,6 +38,11 @@ GEN_DATA_MODULES = ("data.render", "data.render_dataset", "data.composite",
                     "data.segmentation", "recon.turntable", "utils.avi",
                     "utils.imageio", "cli.gen_data", "cli.encode_objs",
                     "cli.debug_vis")
+# multi-device runs and the last support modules: meshes, the sharded
+# evaluator, the process group, flop counts, the backbone trainer
+MULTI_DEVICE_MODULES = ("parallel", "parallel.mesh", "parallel.evaluator",
+                        "parallel.distributed", "utils.flops",
+                        "tools.train_perceptual_backbone")
 
 
 def _banned(name: str) -> bool:
@@ -87,7 +92,8 @@ def test_import_every_module_without_jax():
         assert not bad, bad
         assert len(names) >= 35, names
         for n in {SERVING_MODULES + INFERENCE_MODULES + TRAINING_MODULES
-                  + NORMALS_MODULES + GEN_DATA_MODULES!r}:
+                  + NORMALS_MODULES + GEN_DATA_MODULES
+                  + MULTI_DEVICE_MODULES!r}:
             assert pkg.__name__ + "." + n in names, n
         print(len(names))
     """)

@@ -13,7 +13,8 @@
   bit-equal to the coarse checkpoint, netMR changed, the error histories
   written, every loss finite; ``--stage eval`` then evaluates the epoch
   checkpoint.  Without ``--device cpu`` it raises on a host without CUDA;
-  an unknown stage and the multi-process flags (slice 9) raise by name.
+  an unknown stage and a ``--process_id`` outside ``--num_processes``
+  raise by name (the multi-process runs: ``test_torch_multiproc.py``).
 - ``cli.run_recon --demo-sphere --device cpu`` at narrow widths, 32^3.
 - ``train_fine`` with ``continue_train`` / ``resume_epoch`` starts from the
   named checkpoint; ``profile_trace`` writes a trace.
@@ -197,8 +198,10 @@ def test_cli_coarse_then_fine(world, monkeypatch):
     assert len(errs) == 2 and np.isfinite(errs).all()
     with pytest.raises(SystemExit, match="unknown --stage"):
         run_train.main(["--stage", "nonsense"] + common)
-    with pytest.raises(SystemExit, match="slice 9"):
-        run_train.main(["--coordinator_address", "x:1"] + common)
+    with pytest.raises(ValueError, match="process_id 2 is not one of 2"):
+        run_train.main(["--coordinator_address", "127.0.0.1:1",
+                        "--num_processes", "2", "--process_id", "2"]
+                       + common)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run_train.main(["--stage", "coarse"] + common[:-2])

@@ -360,5 +360,7 @@ def test_cli_dispatch(monkeypatch, stage):
     run_train.main(argv + ["--device", "cpu"])
     jcli.main(argv)
     fn = names[stage]
-    assert calls[f"port.{fn}"] == ("d", ["device"])
+    # one process: the mesh is None (alternating takes none, as in JAX)
+    assert calls[f"port.{fn}"] == ("d", ["device"] if stage == "alternating"
+                                   else ["device", "mesh"])
     assert calls[f"jax.{fn}"][0] == "d"
