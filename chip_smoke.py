@@ -31,7 +31,7 @@ line each; any failure exits non-zero:
    subject (``tests/data/jpeg_subject``); the launch counts each process
    reports are checked against its field queries, the mesh files against
    the replies;
-4b. ``[turntable]``: the main path's OBJ turned into a 36-frame 512^2
+4b. ``[turntable]``: the main path's OBJ turned into a 6-frame 512^2
    Motion-JPEG ``.avi`` (``recon.turntable``), read back and decoded;
 5b. ``[segment]``: GrabCut (``native/grabcut.cc``) on the served 1024^2
    capsule, IoU against its exact mask, and ``crop_people``;
@@ -64,6 +64,17 @@ line each; any failure exits non-zero:
    rtol 1e-4 of one process, rank 1 writes nothing) and ``[dist_eval]``
    (``evaluate_checkpoints`` over two gloo ranks against one process,
    1e-5, each rank's launches);
+6f. the checkpoint recipes: ``[flagship_train]`` (``tools.
+   train_bench_flagship``, the full 384.6 M-parameter flagship, bf16, on
+   its own 1024^2 tree, as a subprocess SIGKILLed right after it saves
+   ``stage2_coarse``, then rerun: it must resume past stage 2; ms a step,
+   peak memory, stage files' MB and write seconds, ambiguous cells),
+   ``[flagship_mesh]`` (``cli.run_recon`` on that checkpoint at 512^3 on
+   the recipe's 1024^2 capsule, twice, the same mesh inside its box;
+   its load, encode seconds beside flagship-lite's, encode FLOPs) and
+   ``[tiny_train]`` (``tools.train_bench_tiny`` at 400 steps, then
+   ``cli.run_recon`` through both kernels, and its field against the
+   committed ``bench_tiny``'s: IoU on a dense 128^3 lattice);
 7. times (CUDA events) of both kernels and their plain versions at the
    full-width shapes, beside the card's bound for the same work (and the
    query's FLOP/s as ``utils/flops`` counts it, with its share of the
@@ -236,6 +247,7 @@ def main() -> None:
         # training and evaluation over two gloo ranks on the card
         paths.update(dist_phases(torch, fq, fm, dev, smi_line, root, ck))
         shutil.rmtree(base, ignore_errors=True)
+        paths.update(recipe_phases(torch, fq, fm, model, smi_line))
         served["jpeg_progressive"] = jpeg_progressive(smi_line)
     if "--profile" in sys.argv[1:]:
         profile_gen_mesh(torch, model, opt, dev)
@@ -1081,22 +1093,27 @@ def segment(dir_a: str) -> None:
         "crop_people_s": round(crop_s, 3)}))
 
 
+TURNTABLE_FRAMES = 6       # was 36: cut to make room for the recipes' phases
+
+
 def turntable(smi_line) -> None:
-    """``[turntable]``: ``generate_video_from_obj`` on ``[main]``'s OBJ, 36
-    frames at 512^2 into an ``.avi``, read back with ``utils/avi`` and
-    every frame decoded; then the OBJ and the video are removed."""
+    """``[turntable]``: ``generate_video_from_obj`` on ``[main]``'s OBJ,
+    ``TURNTABLE_FRAMES`` frames at 512^2 into an ``.avi``, read back with
+    ``utils/avi`` and every frame decoded; then the OBJ and the video are
+    removed."""
     from rgbd_pifuhd_tpu_torch.recon.turntable import generate_video_from_obj
     from rgbd_pifuhd_tpu_torch.utils import avi, jpeg
 
     obj = os.path.join(OUT_DIR, "capsule_512.obj")
     video = os.path.join(OUT_DIR, "turntable.avi")
     t0 = time.time()
-    generate_video_from_obj(obj, video, 512, 36)
+    generate_video_from_obj(obj, video, 512, TURNTABLE_FRAMES)
     secs = time.time() - t0
     info = avi.read_avi(video)
     t0 = time.time()
     shapes = {jpeg.decode(b).shape for b in info["frames"]}
-    if len(info["frames"]) != 36 or shapes != {(512, 512, 3)} or \
+    if len(info["frames"]) != TURNTABLE_FRAMES or \
+            shapes != {(512, 512, 3)} or \
             info["fps"] != 12:
         fail(f"[turntable] {len(info['frames'])} frames, shapes {shapes}, "
              f"fps {info['fps']}")
@@ -1107,6 +1124,402 @@ def turntable(smi_line) -> None:
         "decode_s": round(time.time() - t0, 2)}))
     os.remove(video)
     os.remove(obj)
+
+
+# ------------------------------------------------------ checkpoint recipes
+# [flagship_train]'s step counts (normal nets each, coarse, fine): the JAX
+# bench trained 200 / 800 / 800; fewer here, enough for a field that gives
+# a surface in the subject's box ([flagship_mesh] checks it)
+FLAGSHIP_STEPS = (40, 250, 400)
+FLAGSHIP_PARAMS_M = 384.6
+# [flagship_mesh]: the capsule's own surface is in the mesh: the median of
+# its vertices' distances to the mesh (NDC) within 0.05 (13 voxels at
+# 512^3, 14 % of its radius), the 95th percentile within 0.1 -- a check
+# that the subject is there (a missing or misplaced one lies 0.1-0.5
+# away), not of the short recipe's precision, which is printed beside
+# flagship-lite's and moves from run to run (0.008-0.018 median)
+SUBJECT_P50_MAX, SUBJECT_P95_MAX = 0.05, 0.1
+TINY_IOU_MIN = 0.90       # [tiny_train]'s field against bench_tiny's
+
+
+def _recipe_cmd(module: str, args: list) -> list:
+    return [sys.executable, "-u", "-m",
+            f"rgbd_pifuhd_tpu_torch.tools.{module}"] + args
+
+
+def _run_until(cmd, log_path: str, stop: str | None, timeout: float):
+    """Run ``cmd`` (its own process group) and collect its stdout lines;
+    with ``stop``, SIGKILL the group as soon as a line starts with it.
+    Returns ``(lines, exit code, seconds)``."""
+    import signal
+
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                                stderr=log, text=True,
+                                start_new_session=True,
+                                env={**os.environ, "PYTHONPATH": HERE})
+        timer = threading.Timer(timeout, lambda: os.killpg(
+            proc.pid, signal.SIGKILL))
+        timer.start()
+        lines = []
+        try:
+            for line in proc.stdout:
+                lines.append(line.rstrip("\n"))
+                if stop is not None and line.startswith(stop):
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    break
+        finally:
+            rc = proc.wait()
+            timer.cancel()
+    if time.time() - t0 >= timeout:
+        fail(f"{cmd[4]} ran past {timeout} s: {open(log_path).read()[-2000:]}")
+    return lines, rc, time.time() - t0
+
+
+def flagship_train(smi_line):
+    """``[flagship_train]``: ``tools/train_bench_flagship`` (the full
+    flagship, bf16) on its own tree as a subprocess, SIGKILLed as soon as
+    it says that ``stage2_coarse`` is saved, then run again: the second
+    run must resume past stage 2 and write the checkpoint.  Returns the
+    checkpoint's path and the trainer's launch counts (its ambiguity
+    lattice, the one query of training that runs the kernel)."""
+    base = os.path.join(OUT_DIR, "flagship")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    out = os.path.join(base, "out")
+    nml, coarse, fine = FLAGSHIP_STEPS
+    cmd = _recipe_cmd("train_bench_flagship", [
+        "--steps-nml", str(nml), "--steps-coarse", str(coarse),
+        "--steps-fine", str(fine), "--out", out, "--dataroot",
+        os.path.join(base, "data"), "--log-every", "50"])
+    l1, rc1, s1 = _run_until(cmd, os.path.join(base, "run1.log"),
+                             "[stage] saved stage2_coarse", 600)
+    if not l1 or not l1[-1].startswith("[stage] saved stage2_coarse"):
+        fail(f"[flagship_train] run 1 ended (exit {rc1}) before stage 2 "
+             f"was saved: {l1[-5:]}")
+    if os.path.exists(os.path.join(out, "ckpt")):
+        fail("[flagship_train] run 1 wrote a checkpoint before its kill")
+    l2, rc2, s2 = _run_until(cmd, os.path.join(base, "run2.log"), None, 600)
+    if rc2 != 0:
+        fail(f"[flagship_train] run 2 exit {rc2}: "
+             f"{open(os.path.join(base, 'run2.log')).read()[-3000:]}")
+    if "[stage] resuming past stage 2 (coarse resume point found)" not in l2:
+        fail(f"[flagship_train] run 2 did not resume past stage 2: {l2[:6]}")
+    if any(ln.startswith(("[netF", "[netB", "[coarse")) for ln in l2):
+        fail("[flagship_train] run 2 retrained a finished stage")
+    stages, files = {}, {}
+    amb = final = None
+    for ln in l1 + l2:
+        if ln.startswith("[stage_summary] "):
+            d = json.loads(ln.split(" ", 1)[1])
+            stages[d.pop("stage")] = d
+        elif ln.startswith("[stage] saved "):
+            name, rest = ln[len("[stage] saved "):].split(" ", 1)
+            files[name] = json.loads(rest)
+        elif ln.startswith("[sharpen] ambiguous cells"):
+            amb = ln
+        elif ln.startswith("saved ") and "/ckpt (" in ln:
+            final = json.loads(ln[ln.index(") {") + 2:])
+    if set(stages) != {"netF", "netB", "coarse", "fine"} or final is None \
+            or amb is None or len(files) != 3:
+        fail(f"[flagship_train] missing stage lines: {sorted(stages)}, "
+             f"{sorted(files)}, final {final}, ambiguity {amb}")
+    n_amb = int(amb.split("steps: ")[1].split()[0])
+    amb_launches = int(amb.split("launches ")[1].rstrip(")"))
+    if round(final["params"] / 1e6, 1) != FLAGSHIP_PARAMS_M:
+        fail(f"[flagship_train] {final['params']} parameters, not "
+             f"{FLAGSHIP_PARAMS_M} M")
+    if amb_launches != 5:
+        fail(f"[flagship_train] the ambiguity lattice launched "
+             f"fused_gather_mlp {amb_launches} times (want 5: 65^3 points "
+             "in chunks of 65,536, the last stack)")
+    phase("flagship_train", json.dumps({
+        "card": smi_line, "steps": {"netF": nml, "netB": nml,
+                                    "coarse": coarse, "fine": fine},
+        "params": final["params"], "stages": stages,
+        "stage_files": files, "final_ckpt": final,
+        "ambiguous_cells": n_amb, "ambiguity_fused_gather_mlp": amb_launches,
+        "run1_s": round(s1, 2), "run2_s": round(s2, 2),
+        "resumed_past_stage2": True}))
+    return os.path.join(out, "ckpt"), {"fused_gather_mlp": amb_launches,
+                                       "fused_point_mlp": 0}
+
+
+def recipe_phases(torch, fq, fm, lite_model, smi_line) -> dict:
+    """The checkpoint recipes on the card: ``[flagship_train]``,
+    ``[flagship_mesh]``, ``[tiny_train]``; their launch counts by path."""
+    torch.cuda.empty_cache()
+    ckpt, train_counts = flagship_train(smi_line)
+    paths = {"flagship_train": train_counts,
+             "flagship_mesh": flagship_mesh(
+                 torch, lite_model, ckpt,
+                 os.path.join(OUT_DIR, "flagship", "data"), smi_line)}
+    shutil.rmtree(os.path.join(OUT_DIR, "flagship"), ignore_errors=True)
+    tiny = tiny_train(torch, fq, fm, smi_line)
+    paths["tiny_train"] = tiny["run_recon"]
+    paths["tiny_train_lattice"] = {
+        k: tiny["trained"][k] + tiny["committed"][k]
+        for k in ("fused_gather_mlp", "fused_point_mlp")}
+    return paths
+
+
+def _surface_fit(verts, subject, box, slack) -> dict:
+    """How the mesh holds the subject: the distance from each vertex of
+    the subject's own mesh to the nearest mesh vertex (median and 95th
+    percentile, NDC), the share of mesh vertices inside the subject's box
+    (``slack`` around it), and the mesh's bbox."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    d, _ = cKDTree(verts).query(subject)
+    inside = ((verts >= box["lo"] - slack)
+              & (verts <= box["hi"] + slack)).all(1)
+    return {"subject_p50": round(float(np.median(d)), 5),
+            "subject_p95": round(float(np.percentile(d, 95)), 5),
+            "verts_in_box_share": round(float(inside.mean()), 4),
+            "verts_total": len(verts),
+            "bbox": [verts.min(0).round(3).tolist(),
+                     verts.max(0).round(3).tolist()]}
+
+
+def _encode_s(torch, model, img, img_g, reps: int = 3) -> float:
+    """Warm seconds of one encode (normal nets and both hourglasses), the
+    median of ``reps``."""
+    import numpy as np
+
+    secs = []
+    with torch.inference_mode():
+        for i in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g = model.filter_global(img_g, last_only=True)
+            model.filter_local(img[None], g, last_only=True)
+            torch.cuda.synchronize()
+            if i:
+                secs.append(time.perf_counter() - t0)
+    return float(np.median(secs))
+
+
+def _tree_subject(tree: str, name: str, root: str, stem: str) -> None:
+    """The recipe tree's training image of ``name`` as a request subject:
+    ``gen/<name>_<i>.png``, its front depth map, the whole frame as the
+    rect (the reader's calib then maps the mesh to NDC, y up, as
+    ``_write_subject``'s)."""
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    img = next(f for f in sorted(os.listdir(os.path.join(tree, "gen")))
+               if f.rsplit("_", 1)[0] == name)
+    shutil.copyfile(os.path.join(tree, "gen", img),
+                    os.path.join(root, f"{stem}.png"))
+    shutil.copyfile(os.path.join(tree, "DEPTH", name, "0_0_00.png"),
+                    os.path.join(root, "depth", f"depth_{stem}.png"))
+    with open(os.path.join(root, f"{stem}_rect.txt"), "w") as f:
+        f.write("0 0 1024 1024\n")
+
+
+def flagship_mesh(torch, lite_model, ckpt, tree, smi_line) -> dict:
+    """``[flagship_mesh]``: ``cli/run_recon`` on the port-trained flagship
+    at 512^3 (marching cubes, fd colours, OBJ) on the recipe's capsule
+    (its 1024^2 training image), given twice: both meshes non-empty,
+    finite and equal as sorted vertex sets, the capsule's own surface in
+    the mesh (``_surface_fit``: median and 95th percentile at most
+    ``SUBJECT_P50_MAX`` / ``SUBJECT_P95_MAX``); ``fused_gather_mlp``
+    twice a field query.  The
+    recipe's field also has surfaces outside the subject (its fine stage
+    never sees the image columns outside the 512^2 crop window): their
+    share is printed beside flagship-lite's on the same image.  In this
+    process: the checkpoint's load (``ready_s``), the encode's warm
+    seconds beside flagship-lite's, and its FLOPs (``FlopCounterMode``)
+    against the card's peak.  Returns run_recon's launch counts."""
+    import numpy as np
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from rgbd_pifuhd_tpu_torch.cli.common import load_item, load_reconstructor
+    from rgbd_pifuhd_tpu_torch.data.readdata import InferenceDataset
+    from rgbd_pifuhd_tpu_torch.utils.flops import device_peak_flops
+    from rgbd_pifuhd_tpu_torch.utils.options import Options
+
+    req = os.path.join(OUT_DIR, "req_full")
+    for stem in ("capsule", "capsule_b"):
+        _tree_subject(tree, "capsule", req, stem)
+    box = _subject_box(1024)        # the same capsule, mesh and calib
+    results = os.path.join(OUT_DIR, "full_recon")
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, "-m", "rgbd_pifuhd_tpu_torch.cli.run_recon",
+         "--dataroot", req, "--load_netMR_checkpoint_path", ckpt,
+         "--results_path", results, "--name", "full", "--resolution",
+         "512", "--loadSize", "1024", "--use_color", "0"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    process_s = time.time() - t0
+    if r.returncode != 0:
+        fail(f"[flagship_mesh] run_recon exit {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    lines = r.stdout.strip().splitlines()
+    n = json.loads(lines[-1].split(" ", 1)[1])
+    if not (n["query_calls"] > 0 and n["fused_point_mlp"] == 0
+            and n["fused_gather_mlp"] == 2 * n["query_calls"]):
+        fail(f"[flagship_mesh] launch counts {n}")
+    subject = _subject_ndc(1024)
+    slack = 0.1 * float(box["hi"][1] - box["lo"][1])
+    meshes, secs = [], []
+    for stem in ("capsule", "capsule_b"):
+        ln = next(x for x in lines if f"result_{stem}_512.obj:" in x)
+        path = ln.split(":")[0]
+        pos, n_f = _obj_positions(path, int(ln.split("verts=")[1].split()[0]))
+        secs.append(float(ln.split("secs=")[1]))
+        if not (len(pos) and n_f and np.isfinite(pos).all()):
+            fail(f"[flagship_mesh] {stem}: {len(pos)} verts, {n_f} faces")
+        meshes.append((pos[np.lexsort(pos.T)], n_f))
+    (a, fa), (b, fb) = meshes
+    if a.shape != b.shape or fa != fb or not (a == b).all():
+        fail(f"[flagship_mesh] the two runs differ: {len(a)} / {len(b)} "
+             f"verts, {fa} / {fb} faces")
+    fit = _surface_fit(a, subject, box, slack)
+    if fit["subject_p50"] > SUBJECT_P50_MAX or \
+            fit["subject_p95"] > SUBJECT_P95_MAX:
+        fail(f"[flagship_mesh] the capsule's surface is not in the mesh: "
+             f"{fit}")
+    # in this process: load, encode seconds (and flagship-lite's), FLOPs
+    torch.cuda.synchronize()
+    t0 = time.time()
+    recon, opt_model, _ = load_reconstructor(
+        Options(load_netMR_checkpoint_path=ckpt, load_size=1024), "cuda")
+    torch.cuda.synchronize()
+    ready_s = time.time() - t0
+    item = load_item(InferenceDataset(req, 1024), 0)
+    img = torch.from_numpy(np.asarray(item["img"], np.float32)).cuda()
+    img_g = torch.from_numpy(np.asarray(item["img_512"], np.float32)).cuda()
+    enc_full = _encode_s(torch, recon.model, img, img_g)
+    enc_lite = _encode_s(torch, lite_model, img, img_g)
+    lite, _, _ = load_reconstructor(
+        Options(load_netMR_checkpoint_path=CKPT, load_size=1024), "cuda")
+    out = lite.gen_mesh(item, os.path.join(results, "lite.obj"), 512)
+    fit_lite = _surface_fit(out["verts"], subject, box, slack)
+    del lite, out
+    with torch.inference_mode(), FlopCounterMode(display=False) as fc:
+        g = recon.model.filter_global(img_g, last_only=True)
+        recon.model.filter_local(img[None], g, last_only=True)
+    flops = fc.get_total_flops()
+    peak = device_peak_flops(torch.device("cuda"))
+    n_params = sum(p.numel() for p in recon.model.parameters())
+    del recon
+    torch.cuda.empty_cache()
+    phase("flagship_mesh", json.dumps({
+        "card": smi_line, "model": f"port-trained flagship ({n_params} "
+        "params), bf16, 512^3, mc, fd colours, OBJ",
+        "launches": n, "secs_per_mesh": secs, "warm_secs": secs[1],
+        "process_s": round(process_s, 2), "verts": len(a), "faces": fa,
+        **fit, "subject": [box["lo"].round(3).tolist(),
+                           box["hi"].round(3).tolist()],
+        "subject_bounds": [SUBJECT_P50_MAX, SUBJECT_P95_MAX],
+        "flagship_lite_same_image": fit_lite,
+        "same_on_two_runs": True, "ready_s": round(ready_s, 3),
+        "ckpt_mb": round(os.path.getsize(ckpt) / 1e6, 1),
+        "encode_s": round(enc_full, 5), "encode_s_flagship_lite":
+        round(enc_lite, 5), "encode_flop": flops,
+        "encode_tflops": round(flops / enc_full / 1e12, 2),
+        "encode_peak_share": round(flops / enc_full / peak, 4)
+        if peak else None}))
+    shutil.rmtree(req)
+    shutil.rmtree(results)
+    return n
+
+
+def tiny_train(torch, fq, fm, smi_line) -> dict:
+    """``[tiny_train]``: ``tools/train_bench_tiny`` at its default 400
+    steps a stage on the card, then ``cli/run_recon`` on the result (the
+    coarse level through ``fused_gather_mlp``, the norm-free fine level
+    through ``gather_concat`` + ``fused_point_mlp``; the capsule in the
+    mesh, ``_surface_fit``, as in ``[flagship_mesh]``), and its field
+    beside the committed ``bench_tiny``'s on the capsule's dense 128^3
+    lattice: the IoU of the two occupied sets at 0.5 at least
+    ``TINY_IOU_MIN``.
+    Returns the launch counts of run_recon and of the lattices."""
+    import numpy as np
+
+    from rgbd_pifuhd_tpu_torch.cli.common import load_reconstructor
+    from rgbd_pifuhd_tpu_torch.data.synthetic import capsule_subject
+    from rgbd_pifuhd_tpu_torch.utils.options import Options
+
+    base = os.path.join(OUT_DIR, "tiny")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    lines, rc, train_s = _run_until(_recipe_cmd("train_bench_tiny", [
+        "--out", os.path.join(base, "out"), "--dataroot",
+        os.path.join(base, "data")]), os.path.join(base, "train.log"),
+        None, 600)
+    ckpt = os.path.join(base, "out", "ckpt")
+    if rc != 0 or not os.path.exists(ckpt):
+        fail(f"[tiny_train] exit {rc}: "
+             f"{open(os.path.join(base, 'train.log')).read()[-2000:]}")
+    losses = {ln.split("]")[0][1:]: float(ln.split("loss=")[1])
+              for ln in lines if "] loss=" in ln}
+    req = os.path.join(base, "req")
+    box = _write_subject(req, "capsule", 128)
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, "-m", "rgbd_pifuhd_tpu_torch.cli.run_recon",
+         "--dataroot", req, "--load_netMR_checkpoint_path", ckpt,
+         "--results_path", base, "--name", "tiny", "--resolution", "512",
+         "--loadSize", "128", "--use_color", "0"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"[tiny_train] run_recon exit {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    recon_s = time.time() - t0
+    n = json.loads(r.stdout.strip().splitlines()[-1].split(" ", 1)[1])
+    if not (n["fused_point_mlp"] == n["gather_concat"]
+            == n["fused_gather_mlp"] == n["query_calls"] > 0):
+        fail(f"[tiny_train] run_recon launch counts {n}: want one of each "
+             "kernel per field query")
+    obj = os.path.join(base, "tiny", "recon", "result_capsule_512.obj")
+    pos, n_f = _obj_positions(obj, int(r.stdout.split("verts=")[1].split()[0]))
+    fit = _surface_fit(pos, _subject_ndc(128), box,
+                       0.1 * float(box["hi"][1] - box["lo"][1]))
+    if not (len(pos) and n_f and np.isfinite(pos).all()
+            and fit["subject_p50"] <= SUBJECT_P50_MAX
+            and fit["subject_p95"] <= SUBJECT_P95_MAX):
+        fail(f"[tiny_train] the capsule is not in the mesh: {fit}")
+    # the field on the capsule's dense lattice, both checkpoints
+    rgbd, calib, _, _ = capsule_subject(128)
+    img = torch.from_numpy(rgbd).cuda()[None]
+    cal = torch.from_numpy(calib).cuda()
+    vols, counts = [], {}
+    for name, path in (("trained", ckpt), ("committed", CKPT_TINY)):
+        recon, _, _ = load_reconstructor(
+            Options(load_netMR_checkpoint_path=path, load_size=128), "cuda")
+        for k in (fq.fused_gather_mlp, fq.gather_concat, fm.fused_point_mlp):
+            k.launches = 0
+        with torch.inference_mode():
+            l_f, g_f = recon.encode(img, img)
+            vol, _ = recon.occupancy_volume(l_f, g_f, cal, 128,
+                                            use_octree=False)
+        counts[name] = {"fused_gather_mlp": fq.fused_gather_mlp.launches,
+                        "gather_concat": fq.gather_concat.launches,
+                        "fused_point_mlp": fm.fused_point_mlp.launches}
+        vols.append(np.array(vol) > 0.5)
+        del recon
+    inter = int((vols[0] & vols[1]).sum())
+    union = int((vols[0] | vols[1]).sum())
+    iou = inter / max(union, 1)
+    disagree = float((vols[0] != vols[1]).mean())
+    if not (union and iou >= TINY_IOU_MIN):
+        fail(f"[tiny_train] field IoU {iou:.4f} against bench_tiny's "
+             f"(bound {TINY_IOU_MIN})")
+    if any(c["fused_point_mlp"] == 0 or c["fused_gather_mlp"] == 0
+           for c in counts.values()):
+        fail(f"[tiny_train] lattice launches {counts}")
+    phase("tiny_train", json.dumps({
+        "card": smi_line, "steps": 400, "train_s": round(train_s, 2),
+        "losses": losses, "recon_process_s": round(recon_s, 2),
+        "launches": n, "verts": len(pos), "faces": n_f, **fit,
+        "lattice": "capsule 128^2, dense 128^3", "iou": round(iou, 5),
+        "iou_bound": TINY_IOU_MIN, "disagree_share": round(disagree, 6),
+        "occupied": [int(v.sum()) for v in vols],
+        "lattice_launches": counts}))
+    shutil.rmtree(base)
+    return {"run_recon": n, **counts}
 
 
 def device_info(torch) -> dict:
@@ -2124,9 +2537,9 @@ def served_path() -> dict:
     return counts
 
 
-def _subject_box(size: int) -> dict:
-    """The capsule subject's bbox in the server's coordinates (NDC, y
-    up), as ``_write_subject`` returns it."""
+def _subject_ndc(size: int):
+    """The capsule subject's mesh vertices in the server's coordinates
+    (NDC, y up)."""
     import numpy as np
 
     from rgbd_pifuhd_tpu_torch.data.synthetic import capsule_subject
@@ -2134,6 +2547,13 @@ def _subject_box(size: int) -> dict:
     _, calib, cv, _ = capsule_subject(size)
     ndc = cv @ calib[:3, :3].T.astype(np.float64) + calib[:3, 3]
     ndc[:, 1] *= -1.0
+    return ndc
+
+
+def _subject_box(size: int) -> dict:
+    """The capsule subject's bbox in the server's coordinates (NDC, y
+    up), as ``_write_subject`` returns it."""
+    ndc = _subject_ndc(size)
     return {"lo": ndc.min(0), "hi": ndc.max(0)}
 
 

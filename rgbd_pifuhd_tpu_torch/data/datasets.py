@@ -69,8 +69,12 @@ class TrainDataset:
 
     def __init__(self, opt, phase: str = "train", load_mesh: bool = True,
                  use_crop: bool = False, seed: int = 0,
-                 b_min=TRAIN_B_MIN, b_max=TRAIN_B_MAX, max_subjects=None):
+                 b_min=TRAIN_B_MIN, b_max=TRAIN_B_MAX, max_subjects=None,
+                 imread=None):
         self.opt = opt
+        # RGB reader of the renders and maps: ``png.read_rgb8`` unless the
+        # caller gives one (a per-process cache, ``train_bench_flagship``)
+        self.imread = imread or png.read_rgb8
         self.projection_mode = "orthogonal"
         self.root = opt.dataroot
         self.is_train = phase == "train"
@@ -163,10 +167,10 @@ class TrainDataset:
             return os.path.join(self.root, d, subject, name)
 
         def read(path):        # RGB; a missing map reads as zeros
-            return png.read_rgb8(path) if os.path.exists(path) else None
+            return self.imread(path) if os.path.exists(path) else None
 
         param = np.load(sub("PARAM", "0_0_00.npy"), allow_pickle=True).item()
-        render = self._color_jitter(png.read_rgb8(render_path))
+        render = self._color_jitter(self.imread(render_path))
         depth, imF, imB = (read(sub("DEPTH", "0_0_00.png")),
                            read(sub("NORM", "0_0_00.png")),
                            read(sub("NORM", "180_0_00.png")))

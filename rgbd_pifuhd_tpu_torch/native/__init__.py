@@ -5,7 +5,9 @@
 quantisation, OBJ writer) and ``raster.cc`` (the orthographic z-buffer
 rasteriser of the synthetic training trees) are copies of the JAX package's
 sources; ``grabcut.cc`` (GrabCut segmentation, where the JAX package calls
-OpenCV) is the port's own.  A failed build raises: this port has no NumPy
+OpenCV) and ``containment.cc`` (the point-in-mesh parity of
+``data/containment.py``, where the JAX package loops in NumPy; built
+without FMA contraction so its answers are NumPy's) are the port's own.  A failed build raises: this port has no NumPy
 fallback for them.
 """
 
@@ -22,7 +24,7 @@ _LOCK = threading.Lock()
 _CACHE: dict = {}
 
 
-def _build_lib(name: str, source: str) -> str:
+def _build_lib(name: str, source: str, extra: tuple = ()) -> str:
     so_path = os.path.join(_BUILD, f"lib{name}.so")
     src = os.path.join(_HERE, source)
     if os.path.exists(so_path) and \
@@ -31,7 +33,7 @@ def _build_lib(name: str, source: str) -> str:
     os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{so_path}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-           "-pthread", src, "-o", tmp]
+           "-pthread", *extra, src, "-o", tmp]
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if r.returncode != 0:
         raise RuntimeError(f"g++ build of {name} failed:\n{r.stderr}")
@@ -45,6 +47,7 @@ def build_all() -> None:
     load_meshio()
     load_raster()
     load_grabcut()
+    load_containment()
 
 
 def load_marching():
@@ -161,4 +164,24 @@ def load_grabcut():
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64,
             ci, ci, ci, ci, ci, ctypes.POINTER(ctypes.c_uint8)]
         _CACHE["grabcut"] = lib
+        return lib
+
+
+def load_containment():
+    """ctypes handle to the point-in-mesh parity test (raises on
+    failure)."""
+    with _LOCK:
+        if "containment" in _CACHE:
+            return _CACHE["containment"]
+        lib = ctypes.CDLL(_build_lib("containment", "containment.cc",
+                                     ("-ffp-contract=off",)))
+        dp = ctypes.POINTER(ctypes.c_double)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        # points, n, triangles, bin starts, triangle ids, bb_min, bb_max,
+        # cell, grid, out, threads
+        lib.contains_points.restype = ctypes.c_int
+        lib.contains_points.argtypes = [
+            dp, ctypes.c_int64, dp, i64p, i64p, dp, dp, dp, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int]
+        _CACHE["containment"] = lib
         return lib

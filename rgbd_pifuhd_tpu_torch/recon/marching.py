@@ -5,10 +5,14 @@ dense volume.
 The case tables are DERIVED at import time exactly as in the JAX package
 (marching tetrahedra: 6 tets per cube; marching cubes: a watertight
 per-face disambiguation rule), then handed to the native kernel
-(``native/marching.cc``), which does the marching.  The port has no NumPy
-marching: without the native library the loader raises.  The kernel's
-threads emit vertices in an order that changes from run to run: compare
-meshes as vertex and triangle sets.
+(``native/marching.cc``), which does the marching: without the native
+library the loader raises.  The kernel's threads emit vertices in an order
+that changes from run to run: compare meshes as vertex and triangle sets.
+
+``marching_cubes_numpy`` (a loop over every cube) and
+``marching_tetrahedra_cells`` (the masked scan over given cells) are plain
+NumPy references over the same tables: the independent oracle of the
+native kernel in the tests.  No path calls them.
 """
 
 from __future__ import annotations
@@ -498,3 +502,121 @@ class IncrementalMarcher3:
 
     def __del__(self):
         self.close()
+
+
+# ---------------------------------------------------------------------------
+# NumPy references (the tests' oracle of native/marching.cc)
+def marching_cubes_numpy(volume: np.ndarray, threshold: float = 0.5):
+    """Marching cubes over a dense volume, one cube at a time, with the
+    derived table: index-space ``verts [V, 3]`` f32 and ``faces [F, 3]``
+    int32, one vertex per lattice edge (interpolated from the edge's
+    lower-id corner: the fraction in the volume's dtype, the position in
+    float64)."""
+    X, Y, Z = volume.shape
+    verts: list = []
+    vmap: dict = {}
+    faces: list = []
+
+    def edge_vert(x, y, z, e):
+        a, b = _MC_EDGES[e]
+        pa = (x + _CORNERS[a][0], y + _CORNERS[a][1], z + _CORNERS[a][2])
+        pb = (x + _CORNERS[b][0], y + _CORNERS[b][1], z + _CORNERS[b][2])
+        key = (pa, pb) if pa <= pb else (pb, pa)
+        if key not in vmap:
+            # from the sorted pair, so both cubes sharing the edge agree
+            p = np.asarray(key[0], np.float64)
+            q = np.asarray(key[1], np.float64)
+            va, vb = volume[key[0]], volume[key[1]]
+            t = 0.5 if vb == va else (threshold - va) / (vb - va)
+            t = min(max(t, 0.0), 1.0)
+            vmap[key] = len(verts)
+            verts.append(p + t * (q - p))
+        return vmap[key]
+
+    for x in range(X - 1):
+        for y in range(Y - 1):
+            for z in range(Z - 1):
+                c = np.array([volume[x + dx, y + dy, z + dz]
+                              for dx, dy, dz in _CORNERS])
+                mask = int(((c > threshold) << np.arange(8)).sum())
+                for tri in _MC_CASE_TABLE[mask]:   # every loop a triangle
+                    vid = [edge_vert(x, y, z, e) for e in tri]
+                    if len(set(vid)) == 3:
+                        faces.append(vid)
+    if not verts:
+        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
+    return np.asarray(verts, np.float32), np.asarray(faces, np.int32)
+
+
+def _cells_mask(shape, cell_origins: np.ndarray, factor: int) -> np.ndarray:
+    """Cubes the native masked scan visits: per cell origin ``o``, the
+    cubes ``max(o - 1, 0) .. min(o + factor - 1, n - 1)`` on each axis."""
+    n = np.asarray(shape) - 1
+    mask = np.zeros(tuple(n), bool)
+    for o in np.asarray(cell_origins, np.int64).reshape(-1, 3):
+        lo = np.maximum(o - 1, 0)
+        hi = np.minimum(o + factor - 1, n - 1) + 1
+        mask[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = True
+    return mask
+
+
+def marching_tetrahedra_cells(volume: np.ndarray, cell_origins: np.ndarray,
+                              factor: int = 8, threshold: float = 0.5,
+                              algorithm: str = "mt"):
+    """The masked extraction in NumPy: only the cubes inside (or one cube
+    before) the given cells, ``algorithm`` ``mt`` or ``mc``.  Index-space
+    ``verts [V, 3]`` f32 and ``faces [F, 3]`` int32; vertices keyed by
+    lattice edge, interpolated in float64, degenerate faces dropped.
+
+    Args:
+        cell_origins: ``[K, 3]`` voxel origins of the cells to scan.
+    """
+    vol = np.asarray(volume, np.float32)
+    X, Y, Z = vol.shape
+    flat = vol.reshape(-1)
+    inside = flat > threshold
+    ins3 = inside.reshape(X, Y, Z)
+    any_in = np.zeros((X - 1, Y - 1, Z - 1), bool)
+    all_in = np.ones_like(any_in)
+    for dx, dy, dz in _CORNERS:
+        c = ins3[dx:X - 1 + dx, dy:Y - 1 + dy, dz:Z - 1 + dz]
+        any_in |= c
+        all_in &= c
+    cubes = any_in & ~all_in & _cells_mask(vol.shape, cell_origins, factor)
+    mx, my, mz = np.nonzero(cubes)
+    offs = (_CORNERS[:, 0] * Y + _CORNERS[:, 1]) * Z + _CORNERS[:, 2]
+    cids = ((mx * Y + my) * Z + mz)[:, None] + offs[None, :]   # [n, 8]
+    cins = inside[cids].astype(np.int64)
+    if algorithm == "mc":
+        units = [(cids, cins @ (1 << np.arange(8)), _MC_CASE_TABLE,
+                  _MC_EDGES)]
+    else:
+        units = [(cids[:, tv], cins[:, tv] @ (1 << np.arange(4)),
+                  _CASE_TABLE, _TET_EDGES) for tv in _TETS]
+    keys = []
+    for ids, case_of, table, edges in units:
+        for case in np.unique(case_of):
+            tris = np.asarray(table[case], np.int64).reshape(-1, 3)
+            if not len(tris):
+                continue
+            sel = ids[case_of == case]                      # [n, corners]
+            a, b = sel[:, edges[tris, 0]], sel[:, edges[tris, 1]]
+            keys.append(np.stack([np.minimum(a, b), np.maximum(a, b)],
+                                 -1).reshape(-1, 2))        # [n * t * 3, 2]
+    if not keys:
+        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
+    uniq, inv = np.unique(np.concatenate(keys), axis=0, return_inverse=True)
+    faces = inv.reshape(-1, 3).astype(np.int32)
+    va, vb = flat[uniq[:, 0]].astype(np.float64), flat[uniq[:, 1]].astype(
+        np.float64)
+    t = np.clip((threshold - va) / (vb - va), 0.0, 1.0)
+
+    def unflatten(i):
+        return np.stack([i // (Y * Z), (i // Z) % Y, i % Z], 1).astype(
+            np.float64)
+
+    pa, pb = unflatten(uniq[:, 0]), unflatten(uniq[:, 1])
+    verts = (pa + t[:, None] * (pb - pa)).astype(np.float32)
+    good = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
+            & (faces[:, 0] != faces[:, 2]))
+    return verts, faces[good]

@@ -5,8 +5,8 @@
 - ``make_optimizer``: ``rmsprop`` with optax's arithmetic (``RMSprop``
   below: ``nu = 0.99 nu + 0.01 g^2``, ``g rsqrt(nu + eps)`` with eps inside
   the root, nu from 0; ``torch.optim.RMSprop`` puts eps outside), and
-  ``adam`` (b1 0.5, b2 0.999), ``torch.optim.Adam``, which matches
-  ``optax.adam``.  Both take the rate from the schedule at the number of
+  ``adam`` (b1 0.5 unless given, b2 0.999), ``torch.optim.Adam``, which
+  matches ``optax.adam``.  Both take the rate from the schedule at the number of
   updates already applied;
 - ``make_fine_train_step`` / ``make_coarse_train_step``: one step on a
   batch already on the model's device — the training forward, backward,
@@ -109,15 +109,15 @@ class Adam(_Scheduled, torch.optim.Adam):
         return out
 
 
-def make_optimizer(kind: str, lr, params: Iterable
+def make_optimizer(kind: str, lr, params: Iterable, b1: float = 0.5
                    ) -> torch.optim.Optimizer:
-    """``kind`` 'rmsprop' (decay 0.99, eps 1e-8) or 'adam' (b1 0.5,
-    b2 0.999); ``lr`` a schedule or a constant."""
+    """``kind`` 'rmsprop' (decay 0.99, eps 1e-8) or 'adam' (``b1`` 0.5
+    unless given, b2 0.999); ``lr`` a schedule or a constant."""
     schedule = lr if callable(lr) else (lambda _c, v=float(lr): v)
     if kind == "rmsprop":
         return RMSprop(params, schedule)
     if kind == "adam":
-        return Adam(params, schedule)
+        return Adam(params, schedule, b1=b1)
     raise ValueError(f"unknown optimizer {kind!r}")
 
 

@@ -342,7 +342,8 @@ class _Writer:
         elif isinstance(o, np.ndarray):
             # ext 1 around packb((shape, dtype name, raw bytes)); the raw
             # bytes are kept as a view of the array, not copied
-            a = np.ascontiguousarray(o)
+            # (ascontiguousarray alone makes a 0-d array 1-d)
+            a = np.ascontiguousarray(o).reshape(o.shape)
             inner = _Writer()
             inner.write([list(a.shape), a.dtype.name])
             inner.parts[0] = b"\x93"            # a 3-array, not a 2-array

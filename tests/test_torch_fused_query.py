@@ -168,7 +168,9 @@ def test_bf16_plain_version_rounds_like_flax(rng):
     """bf16: the plain version rounds where flax Dense(dtype=bf16) does, so
     it equals the port's PointMLP.forward (the flax chain step by step) up
     to the matmuls' sum order, which can move a value across one bf16
-    rounding edge (rtol 2^-7: one bf16 ulp)."""
+    rounding edge (rtol 2^-7: one bf16 ulp).  The weights come from the
+    test's own seeded generator, not torch's global one: the data must
+    not depend on the tests that ran before in the same process."""
     H, W, C, E = 12, 12, 30, 2
     N = 128
     dims = (C + E, 64, 32, 1)
@@ -176,6 +178,11 @@ def test_bf16_plain_version_rounds_like_flax(rng):
     uv = rng.uniform(-1.0, 1.0, (N, 2)).astype(np.float32)
     extra = rng.standard_normal((N, E)).astype(np.float32)
     m = PointMLP(dims, 1, (1,), "group", dtype=torch.bfloat16, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for i in range(m.n_layers):
+            w = getattr(m, f"dense{i}").weight
+            w.copy_(torch.empty(w.shape).normal_(0.0, 0.02, generator=gen))
     fb = T(feat).bfloat16()
     with torch.no_grad():
         x0 = torch.cat([fq.gather_ref(fb, T(uv)), T(extra)], -1)

@@ -17,7 +17,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "rgbd_pifuhd_tpu_torch")
 BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "cv2", "PIL",
-          "rgbd_pifuhd_tpu")
+          "rgbd_pifuhd_tpu", "bench", "__graft_entry__")
 SERVING_MODULES = ("cli.common", "cli.run_recon", "cli.serve", "data.readdata",
            "data.preprocessing", "utils.png", "ops.fused_mlp")
 # the rest of inference: JPEG subjects, reference .pth checkpoints, the
@@ -43,6 +43,9 @@ GEN_DATA_MODULES = ("data.render", "data.render_dataset", "data.composite",
 MULTI_DEVICE_MODULES = ("parallel", "parallel.mesh", "parallel.evaluator",
                         "parallel.distributed", "utils.flops",
                         "tools.train_perceptual_backbone")
+# the checkpoint recipes and their supervision
+RECIPE_MODULES = ("tools.train_bench_flagship", "tools.train_bench_tiny",
+                  "utils.watchdog", "utils.retry")
 
 
 def _banned(name: str) -> bool:
@@ -93,7 +96,7 @@ def test_import_every_module_without_jax():
         assert len(names) >= 35, names
         for n in {SERVING_MODULES + INFERENCE_MODULES + TRAINING_MODULES
                   + NORMALS_MODULES + GEN_DATA_MODULES
-                  + MULTI_DEVICE_MODULES!r}:
+                  + MULTI_DEVICE_MODULES + RECIPE_MODULES!r}:
             assert pkg.__name__ + "." + n in names, n
         print(len(names))
     """)
@@ -489,3 +492,57 @@ def test_training_on_generated_tree_refuses_silent_cpu(tmp_path):
     for stage in ("coarse", "eval"):
         with pytest.raises(RuntimeError, match="CUDA"):
             run_train.main(["--stage", stage, "--dataroot", str(tmp_path)])
+
+
+def test_recipes_run_without_jax(tmp_path):
+    """With JAX, flax, optax, msgpack, cv2, PIL, ``bench``,
+    ``__graft_entry__`` and the JAX package blocked: the recipes' options,
+    the flagship recipe's tag and stage files, and the watchdog running a
+    child (the recipes train in ``test_torch_bench_*.py``)."""
+    code = textwrap.dedent(f"""
+        import sys, os
+        for m in {BANNED!r}:
+            sys.modules[m] = None
+        sys.path.insert(0, {REPO!r})
+        os.chdir({str(tmp_path)!r})
+        import numpy as np
+        from rgbd_pifuhd_tpu_torch.tools import train_bench_flagship as tbf
+        from rgbd_pifuhd_tpu_torch.tools import train_bench_tiny as tbt
+        from rgbd_pifuhd_tpu_torch.utils import retry, watchdog
+        assert tbt.tiny_options("tree").netMR.mlp_norm == "none"
+        opt = tbf.flagship_options("tree", lite=True)
+        assert opt.netG.nml_ngf == 16 and opt.netG.compute_dtype == "bfloat16"
+        tag = tbf.recipe_tag(1, 2, 3, "adam", 3e-3, 2.0, 0, True, 10000, 0)
+        tree = {{"w": np.ones((2, 3), np.float16)}}
+        tbf._save_stage("st/stage2_coarse", tree, opt, tag)
+        got = tbf._load_stage("st/stage2_coarse", tag, "cpu")
+        assert got["w"].dtype.is_floating_point and float(got["w"].sum()) == 6
+        assert not retry.is_transient(ValueError("x"))
+        try:
+            watchdog.run_watchdog(["sh", "-c", "exit 0"])
+        except SystemExit as e:
+            assert e.code == 0
+        bad = [k for k in sys.modules
+               if (k == "rgbd_pifuhd_tpu" or k.startswith("rgbd_pifuhd_tpu.")
+                   or k.split(".")[0] in ("jax", "bench", "__graft_entry__"))
+               and sys.modules[k] is not None]
+        assert not bad, bad
+        print("ok")
+    """)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and "ok" in r.stdout, r.stderr
+
+
+@pytest.mark.parametrize("module", ["train_bench_flagship",
+                                    "train_bench_tiny"])
+def test_recipes_refuse_silent_cpu(module, tmp_path):
+    """The recipes default to ``cuda`` and raise without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    import importlib
+
+    mod = importlib.import_module(f"rgbd_pifuhd_tpu_torch.tools.{module}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(["--out", str(tmp_path / "out"), "--dataroot",
+                  str(tmp_path / "tree")])
