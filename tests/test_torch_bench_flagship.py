@@ -112,16 +112,6 @@ def _read(path):
         return tckpt.msgpack_restore(f.read())
 
 
-@pytest.fixture(autouse=True)
-def _two_threads():
-    """Two intra-op threads: six test workers each running a 512^2 fine
-    step on every core thrash the machine (15x a test's time alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 class _Stop(Exception):
     pass
 

@@ -23,8 +23,7 @@ import torch
 from rgbd_pifuhd_tpu_torch.tools import train_bench_tiny as tbt
 from rgbd_pifuhd_tpu_torch.utils import checkpoint as tckpt
 from tests.test_torch_bench_flagship import (  # noqa: F401 (fixtures)
-    REPO, RTOL, _load_script, _read, _same_layout, _two_threads,
-    recording_jit)
+    REPO, RTOL, _load_script, _read, _same_layout, recording_jit)
 
 
 def test_tiny_tree_matches_committed_asset(tmp_path):

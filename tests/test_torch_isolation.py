@@ -101,7 +101,7 @@ def test_import_every_module_without_jax():
         print(len(names))
     """)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=240)
+                       text=True, timeout=30)
     assert r.returncode == 0, r.stderr
 
 
@@ -259,7 +259,7 @@ def test_inference_paths_run_without_jax():
         print("ok")
     """)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=300)
+                       text=True, timeout=120)
     assert r.returncode == 0 and "ok" in r.stdout, r.stderr
 
 
@@ -313,7 +313,7 @@ def test_training_runs_without_jax(tmp_path):
         print("ok")
     """)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=300)
+                       text=True, timeout=60)
     assert r.returncode == 0 and "ok" in r.stdout, r.stderr
 
 
@@ -402,7 +402,7 @@ def test_rest_of_training_runs_without_jax(tmp_path):
         print("ok")
     """)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=300)
+                       text=True, timeout=60)
     assert r.returncode == 0 and "ok" in r.stdout, r.stderr
     assert "matplotlib unavailable; text summary only" in r.stdout
 
@@ -476,7 +476,7 @@ def test_data_generation_runs_without_jax(tmp_path):
         print("ok")
     """)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=300)
+                       text=True, timeout=30)
     assert r.returncode == 0 and "ok" in r.stdout, r.stderr
     assert "matplotlib unavailable; skipped plot" in r.stdout
     assert "rendered {'s': 2} into tree" in r.stdout
@@ -530,7 +530,7 @@ def test_recipes_run_without_jax(tmp_path):
         print("ok")
     """)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=300)
+                       text=True, timeout=30)
     assert r.returncode == 0 and "ok" in r.stdout, r.stderr
 
 

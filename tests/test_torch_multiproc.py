@@ -58,13 +58,16 @@ def _free_port() -> int:
 def _start(args, cwd):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env["OMP_NUM_THREADS"] = "2"        # two ranks beside the parent
+    # two ranks beside the parent: without the root conftest's per-worker
+    # budget, three processes of one thread per core ran the file 2-2.6x
+    # slower than with two threads a child
+    env.setdefault("OMP_NUM_THREADS", "2")
     return subprocess.Popen([sys.executable] + args, cwd=cwd, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
 
 
-def _wait(procs, timeout=300):
+def _wait(procs, timeout=240):
     outs = []
     for p in procs:
         try:

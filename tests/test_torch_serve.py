@@ -110,7 +110,7 @@ def test_serve_requests_and_errors(world):
          "--load_netMR_checkpoint_path", world["ckpt"],
          "--results_path", str(tmp / "results"), "--resolution", str(RES),
          "--loadSize", "64", "--name", "srv", "--device", "cpu"],
-        input=requests, capture_output=True, text=True, timeout=600,
+        input=requests, capture_output=True, text=True, timeout=150,
         cwd=REPO)
     assert res.returncode == 0, res.stderr[-2000:]
     lines = [json.loads(ln) for ln in res.stdout.splitlines()
