@@ -77,8 +77,8 @@ class PointMLP(nn.Module):
         is rounded to that dtype first (torch's own multiplies in f32)."""
         if y.dtype == torch.float32:
             return F.leaky_relu(y, 0.01)
-        slope = torch.tensor(0.01, dtype=y.dtype, device=y.device)
-        return torch.where(y >= 0, y, (slope.float() * y.float()).to(y.dtype))
+        slope = float(torch.tensor(0.01, dtype=y.dtype))  # no host copy
+        return torch.where(y >= 0, y, (slope * y.float()).to(y.dtype))
 
     def forward(self, feature: torch.Tensor, train: bool = False):
         if train:               # the weights are about to change

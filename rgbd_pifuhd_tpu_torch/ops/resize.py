@@ -1,6 +1,7 @@
 """Resize and pooling with PyTorch ``align_corners=True`` semantics on NHWC
-(port of ``ops/resize.py``: the taps are computed once in NumPy and the
-resize is a gather plus weighted sum per axis, in the input's dtype)."""
+(port of ``ops/resize.py``: the taps are computed once in NumPy, copied
+once to each device, and the resize is a gather plus weighted sum per axis,
+in the input's dtype)."""
 
 from __future__ import annotations
 
@@ -43,23 +44,34 @@ def _resize_taps(in_size: int, out_size: int, mode: str):
     return idx.astype(np.int64), w.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=256)
+def _device_taps(in_size: int, out_size: int, mode: str,
+                 device: torch.device, dtype: torch.dtype):
+    """``_resize_taps`` on ``device`` (index flat, weights ``[out, k]`` in
+    ``dtype``), copied there once: a copy from pageable host memory waits
+    for the device's queue, and a CUDA graph cannot hold one.  Made outside
+    inference mode, so that training may save them for its backward."""
+    idx, w = _resize_taps(in_size, out_size, mode)
+    with torch.inference_mode(False):
+        return (torch.from_numpy(idx.reshape(-1)).to(device),
+                torch.from_numpy(w).to(device, dtype))
+
+
 def _resize_axis(x: torch.Tensor, out_size: int, axis: int,
                  mode: str) -> torch.Tensor:
     in_size = x.shape[axis]
     if in_size == out_size and mode == "bilinear":
         return x
-    idx, w = _resize_taps(in_size, out_size, mode)
-    k = idx.shape[1]
-    g = torch.index_select(x, axis, torch.from_numpy(idx.reshape(-1)).to(
-        x.device))
+    idx, w = _device_taps(in_size, out_size, mode, x.device, x.dtype)
+    k = w.shape[1]
+    g = torch.index_select(x, axis, idx)
     shape = list(x.shape)
     shape[axis:axis + 1] = [out_size, k]
     g = g.reshape(shape)
     w_shape = [1] * len(shape)
     w_shape[axis] = out_size
     w_shape[axis + 1] = k
-    wt = torch.from_numpy(w).to(x.device, x.dtype).reshape(w_shape)
-    return (g * wt).sum(dim=axis + 1)
+    return (g * w.reshape(w_shape)).sum(dim=axis + 1)
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw) -> torch.Tensor:

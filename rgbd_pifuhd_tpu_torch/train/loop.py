@@ -163,6 +163,7 @@ def _run(opt: Options, dataset, model, step_fn, sched, collate, logger,
     primary = is_primary()
     one_thread = {} if mesh is None else {"num_threads": 1}
     steps_per_epoch = max(len(dataset) // opt.batch_size, 1)
+    graph_stats = getattr(step_fn, "graph_stats", None)
     global_step = 0
     for epoch in range(opt.num_epoch):
         # one reader thread under a mesh: the items draw from one shared
@@ -185,12 +186,16 @@ def _run(opt: Options, dataset, model, step_fn, sched, collate, logger,
             t2 = time.perf_counter()
             logger.record(loss)
             if global_step % opt.freq_show == 0 and primary:
-                # this step's own times beside the running means
+                # this step's own times beside the running means, and the
+                # share of the steps so far replayed as a CUDA graph
+                extra = (f"stepD: {(t1 - t0) * 1e3:.3f}ms "
+                         f"stepN: {(t2 - t1) * 1e3:.3f}ms")
+                if graph_stats is not None:
+                    n = graph_stats["eager"] + graph_stats["replays"]
+                    extra += f" replayed: {graph_stats['replays'] / n:.0%}"
                 logger.log_iter(epoch, global_step,
                                 steps_per_epoch * opt.num_epoch, loss,
-                                sched(global_step),
-                                f"stepD: {(t1 - t0) * 1e3:.3f}ms "
-                                f"stepN: {(t2 - t1) * 1e3:.3f}ms")
+                                sched(global_step), extra)
             global_step += 1
         if primary:
             logger.save_epoch_errors(epoch)

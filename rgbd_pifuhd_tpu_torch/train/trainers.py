@@ -12,7 +12,10 @@
   batch already on the model's device — the training forward, backward,
   optimiser update — returning the metrics as device tensors.  Parameters
   that received no gradient (netG in the fine stage, the normal nets) are
-  left untouched, as optax leaves them for a zero gradient;
+  left untouched, as optax leaves them for a zero gradient.  On a CUDA
+  device with ``RMSprop`` the coarse step is captured once as a CUDA graph
+  and replayed for every later batch of the same shapes
+  (``GraphedStep``);
 - ``make_normal_train_step``: netF or netB alone, loss ``5 L1 +
   perceptual(target, fake, style)``;
 - ``make_gan_normal_train_step``: the same plus the lsgan term of a
@@ -68,10 +71,27 @@ class RMSprop(_Scheduled, torch.optim.Optimizer):
                  decay: float = 0.99, eps: float = 1e-8):
         super().__init__(params, dict(lr=schedule(0), decay=decay, eps=eps))
         self.schedule, self.count = schedule, 0
+        self.neg_rate = None    # -lr, 0-d float32 on the parameters' device
+
+    def set_rate(self) -> None:
+        """The schedule's rate at ``count`` into every group and, negated,
+        into ``neg_rate``, which ``update`` reads."""
+        self._apply_schedule()
+        dev = self.param_groups[0]["params"][0].device
+        if self.neg_rate is None or self.neg_rate.device != dev:
+            self.neg_rate = torch.zeros((), dtype=torch.float32, device=dev)
+        self.neg_rate.fill_(-self.param_groups[0]["lr"])
 
     @torch.no_grad()
     def step(self, closure=None):
-        self._apply_schedule()
+        self.set_rate()
+        self.update()
+        self.count += 1
+
+    @torch.no_grad()
+    def update(self) -> None:
+        """The update from the gradients at ``neg_rate``: device work
+        alone, which a CUDA graph can hold."""
         for g in self.param_groups:
             ps = [p for p in g["params"] if p.grad is not None]
             if not ps:
@@ -89,9 +109,8 @@ class RMSprop(_Scheduled, torch.optim.Optimizer):
             den = torch._foreach_add(nus, g["eps"])
             torch._foreach_rsqrt_(den)
             torch._foreach_mul_(den, grads)
-            torch._foreach_mul_(den, -g["lr"])
+            torch._foreach_mul_(den, self.neg_rate)
             torch._foreach_add_(ps, den)
-        self.count += 1
 
 
 class Adam(_Scheduled, torch.optim.Adam):
@@ -142,21 +161,124 @@ def make_fine_train_step(model, opt: torch.optim.Optimizer) -> Callable:
     return step
 
 
-def make_coarse_train_step(model, opt: torch.optim.Optimizer,
-                           gamma: float = 0.5) -> Callable:
-    """One coarse-pretraining step (custom BCE over the hourglass
-    stacks)."""
+class GraphedStep:
+    """A train step whose forward, loss, backward and ``RMSprop`` update
+    run as one CUDA graph.
 
-    def step(batch: dict) -> dict:
+    ``loss_fn(batch) -> scalar`` is the step's objective.  The first
+    ``WARMUP`` batches of one signature (keys, shapes, dtypes, device) run
+    eagerly on a side stream, as PyTorch's whole-network capture asks:
+    they create the optimiser's state and settle cuDNN's choices.  The next
+    batch is copied into static buffers, the step captured on them and
+    replayed; every later batch of that signature is copied in and
+    replayed, the rate filled from the schedule before each replay.  Each
+    batch is one step: the optimiser's ``count`` advances once a batch.
+
+    Eager, decided from what the step sees: a model off CUDA, an
+    optimiser other than ``RMSprop``, a batch of another signature once the
+    graph is captured (the graph stays valid for the next one that
+    matches).  ``eager`` is the step without a graph, which
+    ``shard_train_step`` takes: its all-reduce hook fires only in
+    ``optimizer.step()``.  ``graph_stats`` counts eager steps, captures
+    and replays (a captured step is also replayed)."""
+
+    WARMUP = 2
+
+    def __init__(self, loss_fn: Callable, model, opt: torch.optim.Optimizer):
+        from ..models.mlp import PointMLP
+
+        self.model, self.optimizer, self._loss_fn = model, opt, loss_fn
+        self.graph_stats = {"eager": 0, "captures": 0, "replays": 0}
+        self._graph = self._sig = self._stream = None
+        self._warm = 0
+        self._grads_moved = False
+        # the MLPs' packed copies for the kernels: an eager training
+        # forward clears them, a replay runs no Python
+        self._packs = [m._packed for m in model.modules()
+                       if isinstance(m, PointMLP)]
+
+    def eager(self, batch: dict) -> dict:
+        opt = self.optimizer
         opt.zero_grad(set_to_none=True)
-        err, _ = model(batch["images"], batch["points"], batch["calibs"],
-                       batch["labels"], gamma, train=True)
+        err = self._loss_fn(batch)
         err.backward()
         opt.step()
         return {"loss": err.detach()}
 
-    step.model, step.optimizer = model, opt
-    return step
+    def _graphable(self, dev: torch.device, batch: dict) -> bool:
+        return (dev.type == "cuda" and isinstance(self.optimizer, RMSprop)
+                and all(v.device == dev for v in batch.values()))
+
+    def __call__(self, batch: dict) -> dict:
+        dev = next(self.model.parameters()).device
+        sig = sorted((k, v.shape, v.dtype, v.device) for k, v in batch.items())
+        if not self._graphable(dev, batch) or (
+                self._graph is not None and sig != self._sig):
+            self.graph_stats["eager"] += 1
+            self._grads_moved = self._graph is not None
+            return self.eager(batch)
+        if self._graph is None:
+            if sig != self._sig:
+                self._sig, self._warm = sig, 0
+            if self._warm < self.WARMUP:
+                self._warm += 1
+                self.graph_stats["eager"] += 1
+                return self._on_side_stream(batch, dev)
+            self._capture(batch)
+        return self._replay(batch)
+
+    def _on_side_stream(self, batch: dict, dev) -> dict:
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        cur = torch.cuda.current_stream(dev)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            out = self.eager(batch)
+        cur.wait_stream(self._stream)
+        return out
+
+    def _capture(self, batch: dict) -> None:
+        opt = self.optimizer
+        self._static = {k: v.clone() for k, v in batch.items()}
+        opt.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=self._stream):
+            err = self._loss_fn(self._static)
+            err.backward()
+            opt.update()
+        self._graph, self._out = graph, err.detach()
+        # the graph writes these; an eager step in between moves p.grad
+        self._grads = [(p, p.grad) for g in opt.param_groups
+                       for p in g["params"] if p.grad is not None]
+        self.graph_stats["captures"] += 1
+
+    def _replay(self, batch: dict) -> dict:
+        opt = self.optimizer
+        for k, v in batch.items():
+            self._static[k].copy_(v, non_blocking=True)
+        opt.set_rate()
+        self._graph.replay()
+        opt.count += 1
+        for packed in self._packs:
+            packed.clear()
+        if self._grads_moved:
+            for p, grad in self._grads:
+                p.grad = grad
+            self._grads_moved = False
+        self.graph_stats["replays"] += 1
+        return {"loss": self._out.clone()}
+
+
+def make_coarse_train_step(model, opt: torch.optim.Optimizer,
+                           gamma: float = 0.5) -> GraphedStep:
+    """One coarse-pretraining step (custom BCE over the hourglass
+    stacks), replayed as a CUDA graph where ``GraphedStep`` can."""
+
+    def loss_fn(batch: dict) -> torch.Tensor:
+        return model(batch["images"], batch["points"], batch["calibs"],
+                     batch["labels"], gamma, train=True)[0]
+
+    return GraphedStep(loss_fn, model, opt)
 
 
 def make_normal_train_step(gen, opt: torch.optim.Optimizer,
@@ -190,7 +312,8 @@ def shard_train_step(step_fn: Callable, mesh) -> Callable:
     metrics the global means.  The parameters and buffers start as rank
     0's (a broadcast, here).  ``step_fn`` is one of this module's steps
     (its ``model`` and ``optimizer``); a mesh without a process group
-    returns it unchanged."""
+    returns it unchanged.  A ``GraphedStep`` runs eagerly here: a replay
+    would not fire the gradients' all-reduce."""
     from ..models.blocks import batch_stats_group
     from ..parallel.distributed import all_reduce_sum_, broadcast_
 
@@ -201,6 +324,7 @@ def shard_train_step(step_fn: Callable, mesh) -> Callable:
     if group is None:
         return step_fn
     opt = step_fn.optimizer
+    one_step = getattr(step_fn, "eager", step_fn)
     with torch.no_grad():
         for t in list(step_fn.model.parameters()) + list(
                 step_fn.model.buffers()):
@@ -224,7 +348,7 @@ def shard_train_step(step_fn: Callable, mesh) -> Callable:
         hook = opt.register_step_pre_hook(average_grads)
         try:
             with batch_stats_group(group):
-                metrics = step_fn(batch)
+                metrics = one_step(batch)
         finally:
             hook.remove()
         keys = sorted(metrics)

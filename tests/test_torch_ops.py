@@ -84,6 +84,19 @@ def test_upsample2x_bicubic(rng, shape):
            jresize.upsample2x_bicubic(jnp.asarray(x)))
 
 
+def test_upsample_differentiable_after_inference_mode(rng):
+    """The taps are cached per device: a first call under inference mode
+    (serving) must not leave tensors that training's backward refuses."""
+    x = torch.from_numpy(rng.standard_normal((1, 9, 11, 2)).astype(
+        np.float32))
+    with torch.inference_mode():
+        want = tresize.upsample2x_bicubic(x)
+    xg = x.clone().requires_grad_()
+    got = tresize.upsample2x_bicubic(xg)
+    got.sum().backward()
+    assert torch.equal(got.detach(), want) and xg.grad.shape == x.shape
+
+
 def test_bicubic_matches_torch_interpolate(rng):
     x = rng.standard_normal((1, 6, 5, 2)).astype(np.float32)
     got = tresize.upsample2x_bicubic(torch.from_numpy(x))

@@ -31,9 +31,17 @@ JAX package wrote).
 - ``filter_local`` with crop ``rects`` (windows cut out of the normal maps
   resized to the load size, starts clamped): features within 1e-4 of the
   JAX package's (deep conv stacks summed in other orders).
+- The coarse step object on the CPU: every step eager (``graph_stats``),
+  losses and parameters over three steps across a schedule boundary equal
+  bit for bit to the plain forward, backward and optimiser step;
+  ``shard_train_step`` takes its eager form; its routing, with the card's
+  parts stubbed: two warm-ups, a capture, replays, and a batch of another
+  point count eager in between (the card's own run of it:
+  ``test_torch_train_graph.py``).
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -393,3 +401,95 @@ def test_filter_local_rects_matches_jax(jax_vars, rng):
     assert tout.im_feats.shape == jout.im_feats.shape
     np.testing.assert_allclose(tout.im_feats.numpy(),
                                np.asarray(jout.im_feats), rtol=0, atol=1e-4)
+
+
+def _coarse_port(jax_vars, opt_kind):
+    g, _ = _variant("group")
+    m = CoarsePIFu(_port_cfg(g), device="cpu")
+    tckpt.load_params(m, _netG_vars(jax_vars["group"]))
+    # the rate drops tenfold from the third step on
+    sched = ttr.make_lr_schedule(1e-3, (1,), 0.1, 2)
+    return m, ttr.make_optimizer(opt_kind, sched, m.parameters())
+
+
+@pytest.mark.parametrize("opt_kind", ["rmsprop", "adam"])
+def test_coarse_step_on_cpu_is_the_plain_step(items, jax_vars, opt_kind):
+    batches = [collate_coarse([items[i % 2]]) for i in range(3)]
+    m, opt = _coarse_port(jax_vars, opt_kind)
+    step = ttr.make_coarse_train_step(m, opt, gamma=0.1)
+    assert step.model is m and step.optimizer is opt
+    losses = [step(b)["loss"] for b in batches]
+    assert step.graph_stats == {"eager": 3, "captures": 0, "replays": 0}
+    assert opt.count == 3
+    rm, ropt = _coarse_port(jax_vars, opt_kind)
+    for b, loss in zip(batches, losses):
+        ropt.zero_grad(set_to_none=True)
+        err, _ = rm(b["images"], b["points"], b["calibs"], b["labels"], 0.1,
+                    train=True)
+        err.backward()
+        ropt.step()
+        assert torch.equal(loss, err.detach())
+    for (n, p), (_, q) in zip(m.named_parameters(), rm.named_parameters()):
+        assert torch.equal(p, q), n
+        assert (p.grad is None) == (q.grad is None), n
+        if n.startswith(("netF.", "netB.")):     # frozen: no gradient
+            assert p.grad is None, n
+
+
+def test_shard_train_step_takes_the_eager_step(items, jax_vars, monkeypatch):
+    from rgbd_pifuhd_tpu_torch.parallel import distributed as D
+
+    reduced = []
+
+    def all_reduce_sum_(t, group=None):
+        reduced.append(t.numel())
+        return t
+
+    monkeypatch.setattr(D, "broadcast_", lambda t, src=0, group=None: t)
+    monkeypatch.setattr(D, "all_reduce_sum_", all_reduce_sum_)
+    mesh = SimpleNamespace(local_devices=[torch.device("cpu")],
+                           group=object(), world=1)
+    m, opt = _coarse_port(jax_vars, "rmsprop")
+    step = ttr.make_coarse_train_step(m, opt, gamma=0.1)
+    out = ttr.shard_train_step(step, mesh)(collate_coarse([items[0]]))
+    assert set(out) == {"loss"} and opt.count == 1
+    # the graphed entry never ran; the hook averaged every gradient
+    assert step.graph_stats == {"eager": 0, "captures": 0, "replays": 0}
+    n_grad = sum(p.numel() for p in m.parameters() if p.grad is not None)
+    assert reduced == [n_grad, 1]
+
+
+def test_coarse_step_routes_other_point_counts_eagerly(items, jax_vars,
+                                                       monkeypatch):
+    m, opt = _coarse_port(jax_vars, "rmsprop")
+    step = ttr.make_coarse_train_step(m, opt, gamma=0.1)
+    routes = []
+
+    def side(batch, dev):
+        routes.append("warm")
+        return step.eager(batch)
+
+    def capture(batch):
+        routes.append("capture")
+        step._graph = "graph"
+        step.graph_stats["captures"] += 1
+
+    def replay(batch):
+        routes.append("replay")
+        step.graph_stats["replays"] += 1
+        return step.eager(batch)
+
+    monkeypatch.setattr(step, "_graphable", lambda dev, batch: True)
+    monkeypatch.setattr(step, "_on_side_stream", side)
+    monkeypatch.setattr(step, "_capture", capture)
+    monkeypatch.setattr(step, "_replay", replay)
+    full = collate_coarse([items[0]])
+    half = {k: v[:, :128] if k in ("points", "labels") else v
+            for k, v in full.items()}
+    for b in (full, half, full, full, full, half, full):
+        step(b)
+    # a new signature before the capture restarts the warm-up
+    assert routes == ["warm", "warm", "warm", "warm", "capture", "replay",
+                      "replay"]
+    assert step.graph_stats == {"eager": 5, "captures": 1, "replays": 2}
+    assert opt.count == 7
