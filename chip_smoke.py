@@ -8,11 +8,17 @@ line each; any failure exits non-zero:
 2. build: the CUDA kernel (nvcc, sm_90a) and the native host libraries
    (g++), started together, from the sources in the checkout;
 3. kernel against its plain PyTorch version on the card, at the main
-   path's shapes, both GroupNorm scopes, f32 and bf16, plus a ragged N and
-   a narrow norm-free chain;
+   path's shapes, both GroupNorm scopes, f32 and bf16, plus a ragged N, a
+   narrow norm-free chain and the texture field's colour chain at its
+   published widths (513-1024-512-256-128-3, norm-free, the three-column
+   tanh head, a ragged N; the plan's last layer checked);
 4. main path: flagship-lite ``gen_mesh`` at 512^3 on the capsule subject,
    three times (warm-up + two timed), every field query through the
-   kernel (launch count checked), OBJ checked;
+   kernel (launch count checked), OBJ checked; then ``[texture]``: two
+   ``--use_color 3`` meshes of it (``gen_mesh(use_color=3)``, a seeded
+   netC at the published widths), the colour chain's ``color_query``
+   launches checked against the mesh's ``color_calls``, the OBJ's colours
+   against their range and spread;
 5. the other inference paths, flagship-lite at full width and 512^3, warm
    (the main path's escalated budgets): ``[grad]`` (``normal_mode='grad'``,
    and the colour pass alone in both modes on one mesh, with the median
@@ -101,6 +107,7 @@ import json
 import os
 import shutil
 import subprocess
+import statistics
 import sys
 import threading
 import time
@@ -222,6 +229,8 @@ def main() -> None:
     kernels_only = "--kernels-only" in sys.argv[1:]
     launches, esc = (0, {}) if kernels_only else main_path(torch, fq, model,
                                                            opt, dev)
+    tex_launches = 0 if kernels_only else texture_path(torch, fq, model,
+                                                       opt, dev)
     if not kernels_only:
         turntable(smi_line)
     # ---- 5. the other inference paths
@@ -260,7 +269,8 @@ def main() -> None:
             "source": "rgbd_pifuhd_tpu_torch/csrc/fused_query.cu",
             "replaces": "rgbd_pifuhd_tpu/ops/pallas_query.py:286",
             "launches": launches, "max_abs_err": kres["main_err"],
-            "tolerance": kres["main_tol"], **timing}
+            "tolerance": kres["main_tol"], **timing,
+            "color_query_launches": tex_launches}
     kern2 = {"name": "fused_point_mlp", "route": "cuda",
              "source": "rgbd_pifuhd_tpu_torch/csrc/fused_mlp.cu",
              "replaces": "rgbd_pifuhd_tpu/ops/pallas_mlp.py:51",
@@ -1612,6 +1622,34 @@ def kernel_checks(torch, fq, model, PointMLP, dev) -> dict:
                      fq.fused_gather_mlp_ref(f, uv, extra, wide.packed(),
                                              **kw),
                      cd, f"40-64-3 GroupNorm merge {kw['merge_layer']} {cd}")
+    # the texture field's colour chain at the published widths: a 512-
+    # channel gather, the 513-wide residual input, norm-free layers and the
+    # three-column tanh head (bf16: the per-row head kernel), N ragged
+    dims, res_layers = (513, 1024, 512, 256, 128, 3), (1, 2, 3, 4)
+    N = 65536 + 77
+    feat = torch.randn((128, 128, 512), generator=gen, device=dev)
+    uv = torch.rand((N, 2), generator=gen, device=dev) * 2.2 - 1.1
+    z = torch.randn((N, 1), generator=gen, device=dev)
+    for cd in (torch.float32, torch.bfloat16):
+        colour = PointMLP(dims, -1, res_layers, "none", "tanh",
+                          dtype=None if cd == torch.float32 else cd,
+                          device=dev)
+        _draw_colour(torch, colour, 2)
+        packed = colour.packed()
+        kw = dict(res_layers=res_layers, merge_layer=-1, last_op="tanh")
+        f = feat.to(cd).contiguous()
+        ref = fq.fused_gather_mlp_ref(f, uv, z, packed, **kw)
+        label = f"colour 513-1024-512-256-128-3 tanh N={N} {cd}"
+        _compare(torch, fq.fused_gather_mlp(f, uv, z, packed, **kw), ref,
+                 cd, label)
+        head = fq.plan_chain(packed, N, 512, 1, -1, 32, "tanh",
+                             None).layers[-1].ints
+        want = fq.KIND_HEAD if cd == torch.bfloat16 else fq.KIND_F32
+        spread = float(ref[0].std())
+        phase("check", f"{label}: last layer kind {head['kind']} (want "
+              f"{want}), tanh {head['tanh']}, colour spread {spread:.3f}")
+        if head["kind"] != want or head["tanh"] != 1 or spread < 0.1:
+            _BAD.append(f"{label}: plan or spread")
     if _BAD:
         fail(f"kernel disagrees with its plain version: {_BAD}")
     tol = TOL_BF16_PRED
@@ -1621,6 +1659,25 @@ def kernel_checks(torch, fq, model, PointMLP, dev) -> dict:
         "max_abs_err_pred_bf16_main": main_err, "tolerance": tol,
         "launches_in_checks": fq.fused_gather_mlp.launches}))
     return {"main_err": main_err, "main_tol": tol}
+
+
+def _draw_colour(torch, net, seed: int) -> None:
+    """Weights that colour (the rule of ``tests/test_torch_texpifu.draw``):
+    matrices and kernels N(0, 1 / fan_in), the last Dense N(0, 1 / (4
+    fan_in)), biases N(0, 0.05^2), norms' scales 1 and biases 0."""
+    g = torch.Generator().manual_seed(seed)
+    last = [n for n, p in net.named_parameters() if p.dim() == 2][-1]
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if p.dim() > 1:
+                var = (0.25 if name == last else 1.0) / p[0].numel()
+                w = torch.randn(p.shape, generator=g) * var ** 0.5
+            elif "norm" in name:
+                w = torch.full(p.shape, 1.0 if name.endswith("weight")
+                               else 0.0)
+            else:
+                w = torch.randn(p.shape, generator=g) * 0.05
+            p.copy_(w.to(p.device))
 
 
 def _compare(torch, got, ref, cd, label):
@@ -1712,6 +1769,65 @@ def main_path(torch, fq, model, opt, dev) -> int:
           f" s; OBJ {path} ({os.path.getsize(path)} bytes, kept for "
           "[turntable])")
     return launches, recon._esc_budgets
+
+
+def texture_path(torch, fq, model, opt, dev) -> int:
+    """Two ``--use_color 3`` meshes of the capsule at 512^3 through
+    ``Reconstructor.gen_mesh``, coloured by a seeded netC at the published
+    widths (bf16): the colour chain's launches (``color_query``) must be
+    the mesh's ``color_calls``, one a 65,536-vertex chunk, and the OBJ's
+    colours must spread.  Returns the second mesh's colour launches."""
+    from rgbd_pifuhd_tpu_torch.data.synthetic import capsule_subject
+    from rgbd_pifuhd_tpu_torch.models.texture import TexPIFu, color_query
+    from rgbd_pifuhd_tpu_torch.recon.pipeline import Reconstructor
+    from rgbd_pifuhd_tpu_torch.utils.options import ColorConfig
+
+    netC = TexPIFu(ColorConfig(compute_dtype="bfloat16"), opt.netG,
+                   device=dev)
+    _draw_colour(torch, netC, 3)
+    rgbd, calib, _, _ = capsule_subject(512)
+    data = {"img": rgbd[None], "img_512": rgbd[None], "calib": calib}
+    recon = Reconstructor(model, opt, device=dev, netC=netC)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "capsule_512_tex.obj")
+    for run in range(2):
+        color_query.launches = fq.fused_gather_mlp.launches = 0
+        torch.cuda.synchronize()
+        out = recon.gen_mesh(data, path, resolution=512, use_color=3)
+        torch.cuda.synchronize()
+        n_col, n_all = color_query.launches, fq.fused_gather_mlp.launches
+        V = len(out["verts"])
+        if not (n_col == out["color_calls"] >= -(-V // 65536)
+                and out["color_points"] == V
+                and n_all == 2 * out["query_calls"] + n_col):
+            fail(f"texture run {run}: {n_col} colour launches, "
+                 f"{out['color_calls']} colour calls, {V} verts, "
+                 f"{out['color_points']} coloured, {n_all} query kernel "
+                 f"launches for {out['query_calls']} field queries")
+        cols = []
+        with open(path, "rb") as fh:
+            for line in fh:
+                if line.startswith(b"v "):
+                    cols.append(line)
+        if len(cols) != V:
+            fail(f"texture run {run}: OBJ holds {len(cols)} v lines, mesh "
+                 f"{V}")
+        rgb = [[float(x) for x in ln.split()[4:7]] for ln in cols[::97]]
+        lo = min(min(c) for c in rgb)
+        hi = max(max(c) for c in rgb)
+        spread = float(statistics.pstdev(x for c in rgb for x in c))
+        if not (0.0 <= lo and hi <= 1.0 and spread > 0.05):
+            fail(f"texture run {run}: colours {lo}..{hi}, spread {spread}")
+        phase("texture", json.dumps({
+            "run": run, "secs": round(out["secs"], 4), "verts": V,
+            "color_points": out["color_points"],
+            "color_calls": out["color_calls"],
+            "color_query_launches": n_col,
+            "fused_gather_mlp_launches": n_all,
+            "query_calls": out["query_calls"],
+            "colour_spread": round(spread, 4),
+            "host_secs": out["host_secs"]}))
+    return n_col
 
 
 # ------------------------------------------------ the other inference paths

@@ -1,5 +1,6 @@
 """What both entry points share: loading a checkpoint (the JAX package's
-msgpack, or a reference ``.pth``) into a ``Reconstructor`` (sharded over
+msgpack, or a reference ``.pth``; with the texture network ``netC`` when the
+checkpoint holds one) into a ``Reconstructor`` (sharded over
 every local GPU when there are several, as the JAX CLIs shard over
 ``jax.device_count() > 1``), reading a subject, naming its mesh file, and
 the kernel launch counters they report."""
@@ -11,13 +12,14 @@ import os
 import torch
 
 from ..models.multires import MultiResPIFu
+from ..models.texture import TexPIFu, color_query
 from ..ops.fused_mlp import fused_point_mlp
 from ..ops.fused_query import fused_gather_mlp, gather_concat
 from ..parallel import make_device_mesh
 from ..recon.pipeline import Reconstructor
 from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
-from ..utils.options import Options
+from ..utils.options import ColorConfig, Options
 from ..utils.torch_import import reconcile_with_model
 
 
@@ -63,8 +65,23 @@ def load_reconstructor(opt: Options, device: str, full_opts: bool = False):
         # port's 6-channel input
         sd = reconcile_with_model(sd, model)
     model.load_state_dict(sd, strict=True)
-    return (Reconstructor(model, opt_model, device=dev,
-                          mesh=local_mesh(dev)), opt_model, path)
+    netC = None
+    if state.get("netC") is not None:
+        # PIFu's texture network, sized by the checkpoint's opt_netC
+        netC = TexPIFu(ColorConfig.from_dict(state.get("opt_netC") or {}),
+                       opt_model.netG, device=dev)
+        netC.load_state_dict(ckpt.params_from_flax(state["netC"]),
+                             strict=True)
+    return (Reconstructor(model, opt_model, device=dev, mesh=local_mesh(dev),
+                          netC=netC), opt_model, path)
+
+
+def require_texture(recon: Reconstructor, opt: Options, path: str) -> None:
+    """``--use_color 3`` colours with the checkpoint's texture network:
+    refuse a checkpoint without one."""
+    if opt.use_color == 3 and recon.netC is None:
+        raise SystemExit(f"--use_color 3 colours with PIFu's texture network, "
+                         f"and the checkpoint {path} holds none (no netC)")
 
 
 def load_item(dataset, i: int) -> dict:
@@ -82,8 +99,11 @@ def mesh_path(out_dir: str, data: dict, opt: Options) -> str:
 
 def launch_counts(recon: Reconstructor) -> dict:
     """Kernel launches of this process and the field queries behind them
-    (each query is one coarse-level and one fine-level kernel call)."""
+    (each query is one coarse-level and one fine-level kernel call);
+    ``color_query``: the texture field's ``fused_gather_mlp`` calls, of
+    ``fused_gather_mlp``'s."""
     return {"query_calls": recon.total_query_calls,
             "fused_gather_mlp": fused_gather_mlp.launches,
+            "color_query": color_query.launches,
             "fused_point_mlp": fused_point_mlp.launches,
             "gather_concat": gather_concat.launches}

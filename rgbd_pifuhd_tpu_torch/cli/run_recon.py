@@ -23,7 +23,11 @@ regenerates its synthetic capsule subject and reconstructs it.
 the command line's widths (seed 0).
 
 use_color: 0 = fd-normal colours (``gen_mesh``), 1 = image colours, 2 =
-image colours + largest-component cleanup + back inpainting.
+image colours + largest-component cleanup + back inpainting, 3 = PIFu's
+texture network (``models.texture``), which the checkpoint must hold as
+``netC`` with its sizes ``opt_netC`` (refused otherwise).  No trained netC
+is in the repository yet; the benchmark draws one from a seed, so such
+colours are not a person's until a trained netC exists.
 
 The last line printed is ``launches {...}``: the process's kernel launch
 counts.  On a host with several GPUs and ``--device cuda`` every field
@@ -39,7 +43,7 @@ import sys
 
 from ..data.readdata import InferenceDataset
 from .common import (launch_counts, load_item, load_reconstructor,
-                     local_mesh, mesh_path)
+                     local_mesh, mesh_path, require_texture)
 
 _ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "assets")
@@ -102,7 +106,7 @@ def main(argv=None):
     if demo_trained:
         argv.remove("--demo-trained")
     opt, device = parse_options(argv, with_device=True)
-    if opt.use_color not in (0, 1, 2):
+    if opt.use_color not in (0, 1, 2, 3):
         raise SystemExit(f"unknown use_color {opt.use_color}")
 
     if demo_sphere:
@@ -114,7 +118,8 @@ def main(argv=None):
         recon, opt_model, _ = load_reconstructor(opt, device, full_opts=True)
         dataset = _CapsuleDemo(opt_model.load_size)
     else:
-        recon, opt_model, _ = load_reconstructor(opt, device)
+        recon, opt_model, path = load_reconstructor(opt, device)
+        require_texture(recon, opt, path)
         dataset = InferenceDataset(opt.dataroot, opt.load_size)
     out_dir = os.path.join(opt.results_path, opt.name, "recon")
     os.makedirs(out_dir, exist_ok=True)
@@ -144,8 +149,9 @@ def main(argv=None):
             data = load_item(dataset, i)
             save_path = mesh_path(out_dir, data, opt)
             print(save_path)
-            if opt.use_color == 0:
-                r = recon.gen_mesh(data, save_path, opt.resolution)
+            if opt.use_color in (0, 3):
+                r = recon.gen_mesh(data, save_path, opt.resolution,
+                                   use_color=opt.use_color)
             else:
                 r = recon.gen_mesh_img_color(data, save_path, opt.resolution,
                                              cleanup=opt.use_color == 2)

@@ -17,14 +17,21 @@ mesh on stdout:
 
     {"name": ..., "mesh": "<path>", "verts": N, "secs": S}
 
-(a single-subject reply also carries ``read_secs``, the part of ``secs``
-spent decoding and resizing the subject's images)
+(each reply also carries ``read_secs``, the seconds spent decoding and
+resizing the subject's images: part of ``secs`` for a single subject; in a
+directory request the next subject's read runs while the previous one's
+host tail is on the worker)
 
 a ``{"ready": true}`` line once the model is loaded, per failed request an
 ``{"error": ..., "request": ...}`` line (the server keeps running), and a
 last ``{"quit": true, "launches": {...}}`` line with the process's kernel
 launch counts.  ``--use_color``, ``--mesh_format``, ``--normal_mode``,
-``--octree_levels`` and ``--no_octree`` hold for the whole process.  On a
+``--octree_levels`` and ``--no_octree`` hold for the whole process.
+``--use_color``: 0 fd-normal colours, 1 image colours, 2 image colours with
+cleanup, 3 PIFu's texture network (``models.texture``): the checkpoint must
+hold a ``netC`` (and its sizes, ``opt_netC``), else the server refuses to
+start.  No trained netC is in the repository yet: the benchmark's is drawn
+from a seed, so its colours are not a person's.  On a
 host with several GPUs and ``--device cuda`` every field query and colour
 pass is sharded over all of them (``cli.common.local_mesh``).
 """
@@ -38,7 +45,8 @@ import time
 import traceback
 
 from ..data.readdata import InferenceDataset
-from .common import launch_counts, load_item, load_reconstructor, mesh_path
+from .common import (launch_counts, load_item, load_reconstructor,
+                     mesh_path, require_texture)
 
 
 def _serve_loop(recon, opt, out_dir: str, requests, emit):
@@ -60,27 +68,36 @@ def _serve_loop(recon, opt, out_dir: str, requests, emit):
             if len(idxs) > 1:
                 # multi-subject request: the two-slot pipeline, as the
                 # batch CLI's
-                named: list[tuple[str, str]] = []
+                named: list[tuple[str, str, float]] = []
+                t_reads: list[float] = []
+
+                def read(i):
+                    t0 = time.time()
+                    data = load_item(dataset, i)
+                    t_reads.append(time.time() - t0)
+                    return data
 
                 def path_for_and_log(data):
                     p = mesh_path(out_dir, data, opt)
-                    named.append((data["name"], p))
+                    named.append((data["name"], p, t_reads[-1]))
                     return p
 
                 results = recon.gen_mesh_many(
-                    (load_item(dataset, i) for i in idxs), path_for_and_log,
+                    (read(i) for i in idxs), path_for_and_log,
                     use_color=opt.use_color, resolution=opt.resolution)
-                for (name, p), r in zip(named, results):
+                for (name, p, t_read), r in zip(named, results):
                     emit({"name": name, "mesh": p,
                           "verts": int(len(r["verts"])),
-                          "secs": round(r["secs"], 3)})
+                          "secs": round(r["secs"], 3),
+                          "read_secs": round(t_read, 3)})
             else:
                 t0 = time.time()
                 data = load_item(dataset, idxs[0])
                 t_read = time.time() - t0
                 save_path = mesh_path(out_dir, data, opt)
-                if opt.use_color == 0:
-                    r = recon.gen_mesh(data, save_path, opt.resolution)
+                if opt.use_color in (0, 3):
+                    r = recon.gen_mesh(data, save_path, opt.resolution,
+                                       use_color=opt.use_color)
                 else:
                     r = recon.gen_mesh_img_color(
                         data, save_path, opt.resolution,
@@ -99,9 +116,10 @@ def main(argv=None):
 
     opt, device = parse_options(
         list(sys.argv[1:] if argv is None else argv), with_device=True)
-    if opt.use_color not in (0, 1, 2):
+    if opt.use_color not in (0, 1, 2, 3):
         raise SystemExit(f"unknown use_color {opt.use_color}")
     recon, opt_model, path = load_reconstructor(opt, device)
+    require_texture(recon, opt, path)
     out_dir = os.path.join(opt.results_path, opt.name, "serve")
     os.makedirs(out_dir, exist_ok=True)
 

@@ -6,7 +6,8 @@
 // feature map (grid_sample zeros padding, align_corners=True), concat of
 // the `extra` channels, then Dense -> GroupNorm(32) -> leaky_relu(0.01)
 // layers with residual concats of the original input, phi captured after
-// the merge layer, and a sigmoid head.
+// the merge layer, and a sigmoid head (the occupancy fields) or a tanh head
+// (the texture field's three colour columns).
 //
 // What bounds it on an H100: operations.  At the flagship widths a point
 // costs ~2.92 MFLOP (coarse 257-1024-512-256-128-1 plus fine
@@ -45,7 +46,9 @@
 // warpgroup has its own epilogue: round in registers, a padded shared-memory
 // tile for 16-byte stores, and the column sums of the stored values over
 // its 64 rows.  The one-column head (M = 1) is a dot product per row
-// (head_kernel), bound by bytes.  The f32 variant (layer_f32_kernel: FMA
+// (head_kernel), bound by bytes; the texture field's three-column last
+// layer (RGB) takes the same kernel, one dot product per column from the
+// one read of the row.  The f32 variant (layer_f32_kernel: FMA
 // tiles, used to check the arithmetic and by f32 models) keeps the unfused
 // GroupNorm arithmetic.
 //
@@ -91,16 +94,18 @@ struct LayerParams {
   const float* gs_in;      // [K1] GroupNorm scale of h_prev
   const float* gb_in;      // [K1] GroupNorm bias of h_prev
   void* out;               // [N, ldo]: compute dtype, or f32 (last layer)
-  float* raw_out;          // [N, M] f32 pre-sigmoid copy, or null
+  float* raw_out;          // [N, M] f32 pre-activation copy, or null
   float* phi_out;          // [N, K1] f32 activated input (phi), or null
   float* part_out;         // [n_rowblocks, M, 2] column partials, or null
   float* stats_out;        // [n_seg, g_out, 8, 2] (with part_out), or null
   int kind;                // 0 f32 FMA tiles, 1 bf16 wgmma tiles, 2 bf16 head
+                           // (M 1 or HEAD_COLS, last layer)
   int N, K1, K1p, K2p, M, ldo, lda1, lda2;
   int norm_in;             // 0 none, 1 leaky, 2 GroupNorm + leaky
   int cg_in, g_in, cg_out, g_out;
   int seg_rows, n_seg;
-  int last, sigmoid;
+  int last, sigmoid, tanh; // the last layer's activation: sigmoid, tanh or
+                           // none
 };
 
 namespace {
@@ -139,6 +144,11 @@ __device__ __forceinline__ float leaky_bf16(float v) {
 
 __device__ __forceinline__ float sigmoid(float v) {
   return __fdiv_rn(1.f, __fadd_rn(1.f, expf(-v)));
+}
+
+// The last layer's activation.
+__device__ __forceinline__ float head_act(const LayerParams& p, float v) {
+  return p.sigmoid ? sigmoid(v) : p.tanh ? tanhf(v) : v;
 }
 
 // A (segment, group)'s statistics are kept as STATS_SPLIT partial (sum, sum
@@ -485,7 +495,7 @@ __global__ void __launch_bounds__(NT_WG, 1) layer_wgmma_kernel(
         return *reinterpret_cast<const uint32_t*>(&v2);
       };
       if (p.last) {
-        // the last layer: f32 straight to global memory, sigmoid head
+        // the last layer: f32 straight to global memory, its activation
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
@@ -499,7 +509,7 @@ __global__ void __launch_bounds__(NT_WG, 1) layer_wgmma_kernel(
               if (grow < p.N && gcol < p.M) {
                 if (p.raw_out) p.raw_out[(int64_t)grow * p.M + gcol] = v[e];
                 static_cast<float*>(p.out)[(int64_t)grow * p.ldo + gcol] =
-                    p.sigmoid ? sigmoid(v[e]) : v[e];
+                    head_act(p, v[e]);
               }
             }
           }
@@ -574,18 +584,22 @@ __global__ void __launch_bounds__(NT_WG, 1) layer_wgmma_kernel(
   }
 }
 
-// The one-column head (M = 1, last layer): a dot product per row with the
-// same prologue, half a warp per row (its 16 lanes cover a 128-wide row in
-// one 16-byte load each), 32 rows a block.  Bound by the bytes of its A
-// rows.
+// The head (the last layer, M = NC columns: the occupancy fields' one, the
+// texture field's HEAD_COLS): NC dot products per row from one read of it,
+// with the same prologue, half a warp per row (its 16 lanes cover a
+// 128-wide row in one 16-byte load each), 32 rows a block.  Bound by the
+// bytes of its A rows.
 constexpr int HEAD_ROWS = 32;
+constexpr int HEAD_COLS = 3;
 
+template <int NC>
 __global__ void __launch_bounds__(NT) head_kernel(const LayerParams p) {
   __shared__ __align__(16) float s_mul[MAXK_NORM];
   __shared__ __align__(16) float s_add[MAXK_NORM];
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int row0 = blockIdx.x * HEAD_ROWS;
   const bf16* w = static_cast<const bf16*>(p.w);
+  const int ldw = p.K1p + p.K2p;        // a column's weights
   if (p.norm_in == 2) {
     const int seg = row0 / p.seg_rows;
     const float n = (float)p.seg_rows * (float)p.cg_in;
@@ -599,19 +613,27 @@ __global__ void __launch_bounds__(NT) head_kernel(const LayerParams p) {
     }
     __syncthreads();
   }
-  const float bias = p.bias[0];
   constexpr int ROWS_PER_WARP = HEAD_ROWS / (NT / 32);
   const int half = lane >> 4, hl = lane & 15;
   for (int i = 0; i < ROWS_PER_WARP; i += 2) {
     const int row = row0 + warp * ROWS_PER_WARP + i + half;
     const bool live = row < p.N;        // the shuffles below need every lane
-    float sum = 0.f;
+    float sum[NC];
+#pragma unroll
+    for (int o = 0; o < NC; ++o) sum[o] = 0.f;
     const bf16* a = static_cast<const bf16*>(p.a1) + (int64_t)row * p.lda1;
     for (int k = hl * VEC; live && k < p.lda1; k += 16 * VEC) {
       const uint4 av = *reinterpret_cast<const uint4*>(a + k);
-      const uint4 wv = *reinterpret_cast<const uint4*>(w + k);
       const uint32_t ax[4] = {av.x, av.y, av.z, av.w};
-      const uint32_t wx[4] = {wv.x, wv.y, wv.z, wv.w};
+      uint32_t wx[NC][4];
+#pragma unroll
+      for (int o = 0; o < NC; ++o) {
+        const uint4 wv = *reinterpret_cast<const uint4*>(w + o * ldw + k);
+        wx[o][0] = wv.x;
+        wx[o][1] = wv.y;
+        wx[o][2] = wv.z;
+        wx[o][3] = wv.w;
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = k + 2 * j;
@@ -630,31 +652,44 @@ __global__ void __launch_bounds__(NT) head_kernel(const LayerParams p) {
             if (c + 1 < p.K1) dst[1] = y1;
           }
         }
-        sum = fmaf(bf16_lo(x), bf16_lo(wx[j]), sum);
-        sum = fmaf(bf16_hi(x), bf16_hi(wx[j]), sum);
+#pragma unroll
+        for (int o = 0; o < NC; ++o) {
+          sum[o] = fmaf(bf16_lo(x), bf16_lo(wx[o][j]), sum[o]);
+          sum[o] = fmaf(bf16_hi(x), bf16_hi(wx[o][j]), sum[o]);
+        }
       }
     }
     if (p.K2p) {
       const bf16* b = static_cast<const bf16*>(p.a2) + (int64_t)row * p.lda2;
       for (int k = hl * VEC; live && k < p.lda2; k += 16 * VEC) {
         const uint4 av = *reinterpret_cast<const uint4*>(b + k);
-        const uint4 wv = *reinterpret_cast<const uint4*>(w + p.K1p + k);
         const uint32_t ax[4] = {av.x, av.y, av.z, av.w};
-        const uint32_t wx[4] = {wv.x, wv.y, wv.z, wv.w};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sum = fmaf(bf16_lo(ax[j]), bf16_lo(wx[j]), sum);
-          sum = fmaf(bf16_hi(ax[j]), bf16_hi(wx[j]), sum);
+        for (int o = 0; o < NC; ++o) {
+          const uint4 wv =
+              *reinterpret_cast<const uint4*>(w + o * ldw + p.K1p + k);
+          const uint32_t wx[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            sum[o] = fmaf(bf16_lo(ax[j]), bf16_lo(wx[j]), sum[o]);
+            sum[o] = fmaf(bf16_hi(ax[j]), bf16_hi(wx[j]), sum[o]);
+          }
         }
       }
     }
 #pragma unroll
-    for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xFFFFFFFFu, sum, o);
+    for (int o = 0; o < NC; ++o) {
+#pragma unroll
+      for (int s = 8; s > 0; s >>= 1)
+        sum[o] += __shfl_xor_sync(0xFFFFFFFFu, sum[o], s);
+    }
     if (live && hl == 0) {
-      const float v = round_bf16(__fadd_rn(round_bf16(sum), bias));
-      if (p.raw_out) p.raw_out[row] = v;
-      static_cast<float*>(p.out)[(int64_t)row * p.ldo] =
-          p.sigmoid ? sigmoid(v) : v;
+#pragma unroll
+      for (int o = 0; o < NC; ++o) {
+        const float v = round_bf16(__fadd_rn(round_bf16(sum[o]), p.bias[o]));
+        if (p.raw_out) p.raw_out[(int64_t)row * NC + o] = v;
+        static_cast<float*>(p.out)[(int64_t)row * p.ldo + o] = head_act(p, v);
+      }
     }
   }
 }
@@ -837,7 +872,7 @@ __global__ void __launch_bounds__(NT) layer_f32_kernel(const LayerParams p) {
       if (p.last) {
         if (p.raw_out) p.raw_out[(int64_t)grow * p.M + gcol] = v;
         static_cast<float*>(p.out)[(int64_t)grow * p.ldo + gcol] =
-            p.sigmoid ? sigmoid(v) : v;
+            head_act(p, v);
       } else {
         static_cast<float*>(p.out)[(int64_t)grow * p.ldo + gcol] = v;
       }
@@ -1015,7 +1050,8 @@ cudaError_t launch_wgmma(const LayerParams& p, cudaStream_t s) {
 // One layer: its kernel by `kind`, then the statistics reduce it feeds.
 cudaError_t launch_layer(int dtype, const LayerParams& p, cudaStream_t s) {
   if ((p.kind == 0) != (dtype == 0) || p.kind < 0 || p.kind > 2 ||
-      (p.kind == 2 && !(p.M == 1 && p.last)) || p.norm_in < 0 ||
+      (p.kind == 2 && !((p.M == 1 || p.M == wg::HEAD_COLS) && p.last)) ||
+      p.norm_in < 0 ||
       p.norm_in > 2)
     return cudaErrorInvalidValue;
   int bm = f32::BM;
@@ -1030,8 +1066,11 @@ cudaError_t launch_layer(int dtype, const LayerParams& p, cudaStream_t s) {
                                            : launch_wgmma<2>(p, s);
     if (e != cudaSuccess) return e;
   } else {
-    wg::head_kernel<<<(p.N + wg::HEAD_ROWS - 1) / wg::HEAD_ROWS, NT, 0, s>>>(
-        p);
+    const unsigned grid = (p.N + wg::HEAD_ROWS - 1) / wg::HEAD_ROWS;
+    if (p.M == 1)
+      wg::head_kernel<1><<<grid, NT, 0, s>>>(p);
+    else
+      wg::head_kernel<wg::HEAD_COLS><<<grid, NT, 0, s>>>(p);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || p.part_out == nullptr) return e;
@@ -1050,7 +1089,8 @@ extern "C" {
 // sizeof(LayerParams), 2 / 3 rows per row block of the statistics partials
 // of the f32 / bf16 layer kernel, 4 the bf16 kernels' K padding, 5 the rows
 // of a bf16 block tile (what a GroupNorm segment must be a multiple of), 6
-// the partial pairs a (segment, group) entry of the statistics holds.
+// the partial pairs a (segment, group) entry of the statistics holds, 7 the
+// columns of the head kernel's wider variant.
 int fq_abi(int which) {
   switch (which) {
     case 0: return (int)sizeof(GatherParams);
@@ -1060,6 +1100,7 @@ int fq_abi(int which) {
     case 5: return wg::BM;
     case 6: return STATS_SPLIT;
     case 4: return wg::BK;
+    case 7: return wg::HEAD_COLS;
     default: return -1;
   }
 }

@@ -1,4 +1,5 @@
-"""Per-point occupancy MLP (port of ``models/mlp.py``).
+"""Per-point occupancy MLP (port of ``models/mlp.py``), and with a tanh
+head the texture field's colour MLP (``models.texture``).
 
 ``forward`` is the plain reference chain over ``[B, N, C]`` — the flax
 ``PointMLP`` step by step, used on the CPU and by the tests.  The model's
@@ -97,6 +98,8 @@ class PointMLP(nn.Module):
                 phi = y
         if self.last_op == "sigmoid":
             y = torch.sigmoid(y.float())
+        elif self.last_op == "tanh":
+            y = torch.tanh(y.float())
         return y, phi
 
     def _folded(self, i: int):

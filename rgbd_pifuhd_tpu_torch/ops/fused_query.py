@@ -5,8 +5,10 @@ Port of the TPU kernel ``rgbd_pifuhd_tpu/ops/pallas_query.py``
 hat-weight bilinear gather from ``feat [H, W, C]`` (equal to grid_sample
 with zeros padding and ``align_corners=True``), concat of ``extra [N, E]``,
 then the PointMLP chain — Dense, GroupNorm(32) with ``E[x^2] - E[x]^2``
-statistics in f32, leaky_relu(0.01), residual concat of the original input,
-``phi`` after the merge layer, sigmoid head.
+statistics in f32 (or no norm), leaky_relu(0.01), residual concat of the
+original input, ``phi`` after the merge layer, and a sigmoid head (the
+occupancy fields) or a tanh head (the texture field's RGB,
+``models.texture``).
 
 GroupNorm scope is a parameter: ``gn_scope=None`` pools the statistics over
 all N points of the call (what flax ``GroupNorm`` does inside the JAX main
@@ -23,8 +25,8 @@ A CUDA call is planned once per shape (``plan_chain``: the launches and one
 workspace that holds every intermediate), bound to addresses (``Chain``)
 and enqueued by one host call, ``fq_chain``: the gather, then per Dense
 layer one launch (f32: FMA tiles; bf16: wgmma tiles fed by TMA, or the
-per-row head for a last layer one column wide) and the reduce of its
-GroupNorm statistics.
+per-row head for a last layer of 1 or ``HEAD_COLS`` columns) and the
+reduce of its GroupNorm statistics.
 """
 
 from __future__ import annotations
@@ -57,6 +59,8 @@ MAXK_NORM = 1024    # widest normalised layer the kernel's prologue holds
 EPS = 1e-5
 SLOPE = 0.01
 SLOPE_BF16 = 0.010009765625     # 0.01 rounded to bf16
+HEAD_COLS = 3       # the bf16 head kernel's wider last layer (RGB)
+LAST_OPS = (None, "sigmoid", "tanh")
 # LayerParams.kind: which kernel a layer launches
 KIND_F32, KIND_WGMMA, KIND_HEAD = 0, 1, 2
 
@@ -249,6 +253,8 @@ def fused_gather_mlp_ref(feat, uv, extra, layers: PackedMLP, *,
         h = y.to(cd)
     if last_op == "sigmoid":
         out = torch.sigmoid(out)
+    elif last_op == "tanh":
+        out = torch.tanh(out)
     return out, phi
 
 
@@ -260,7 +266,7 @@ _LAYER_PTRS = ("a1", "a2", "w", "bias", "stats_in", "gs_in", "gb_in", "out",
                "raw_out", "phi_out", "part_out", "stats_out")
 _LAYER_INTS = ("kind", "N", "K1", "K1p", "K2p", "M", "ldo", "lda1", "lda2",
                "norm_in", "cg_in", "g_in", "cg_out", "g_out", "seg_rows",
-               "n_seg", "last", "sigmoid")
+               "n_seg", "last", "sigmoid", "tanh")
 
 
 class _GatherParams(ctypes.Structure):
@@ -325,15 +331,14 @@ def _lib():
     lib.fq_launch.argtypes = [ci, gp, lp, ci, ci, vp]
     lib.fq_chain.restype = ci
     lib.fq_chain.argtypes = [ci, gp, lp, ci, vp, ctypes.POINTER(ci)]
-    got = [lib.fq_abi(i) for i in range(7)]
+    got = [lib.fq_abi(i) for i in range(8)]
     want = [ctypes.sizeof(_GatherParams), ctypes.sizeof(_LayerParams),
             BM[torch.float32], BM[torch.bfloat16], BK,
-            TILE_ROWS[torch.bfloat16], STATS_SPLIT]
+            TILE_ROWS[torch.bfloat16], STATS_SPLIT, HEAD_COLS]
     if got != want:
         raise RuntimeError(f"fused_query: the library says {got} for struct "
-                           f"sizes, row blocks, K padding and tile rows; "
-                           f"this module "
-                           f"{want}")
+                           f"sizes, row blocks, K padding, tile rows and "
+                           f"head columns; this module {want}")
     _LIB.append(lib)
     return lib
 
@@ -384,10 +389,10 @@ def plan_chain(mlp: PackedMLP, N: int, C: int, E: int, merge: int,
                gn_scope: int | None) -> ChainPlan:
     """The launches of one ``fused_gather_mlp`` call over ``N`` points:
     gather into ``x0``, then per Dense one layer launch (f32: FMA tiles;
-    bf16: wgmma tiles, or the per-row head for a last layer one column
-    wide) that reads ``h<i-1>`` (and ``x0`` for a residual layer) and writes
-    ``h<i>`` with its column partials ``part<i>`` reduced into
-    ``stats<i>``.  phi comes from the layer after the merge layer, which
+    bf16: wgmma tiles, or the per-row head for a last layer of 1 or
+    ``HEAD_COLS`` columns) that reads ``h<i-1>`` (and ``x0`` for a residual
+    layer) and writes ``h<i>`` with its column partials ``part<i>`` reduced
+    into ``stats<i>``.  phi comes from the layer after the merge layer, which
     writes its activated input, or from ``raw_out`` when the merge layer is
     the last.  All buffers lie in one workspace, ``_ALIGN`` bytes apart at
     least.  Cached on ``mlp``."""
@@ -418,11 +423,12 @@ def plan_chain(mlp: PackedMLP, N: int, C: int, E: int, merge: int,
         M = int(L.weight.shape[0])
         last = i == n_layers - 1
         kind = KIND_F32 if not bf else (
-            KIND_HEAD if last and M == 1 else KIND_WGMMA)
+            KIND_HEAD if last and M in (1, HEAD_COLS) else KIND_WGMMA)
         k1p, k2p = (L.k1p, L.k2p) if kind == KIND_F32 else (L.k1k, L.k2k)
         ints = dict(kind=kind, N=N, K1=L.k1, K1p=k1p, K2p=k2p, M=M,
                     seg_rows=seg_rows, n_seg=n_seg, last=int(last),
-                    sigmoid=int(last and last_op == "sigmoid"))
+                    sigmoid=int(last and last_op == "sigmoid"),
+                    tanh=int(last and last_op == "tanh"))
         lp = LayerPlan(ints, "x0", "x0" if L.k2p else None, "pred", None,
                        None, None, None)
         if i == 0:
@@ -578,6 +584,8 @@ def fused_gather_mlp(feat: torch.Tensor, uv: torch.Tensor,
         layers: ``pack_layers`` output.
         merge_layer: layer whose post-activation output is returned as phi;
             -1 disables.
+        last_op: the last layer's activation, ``"sigmoid"``, ``"tanh"`` or
+            None.
         gn_scope: None = GroupNorm statistics over all N points; an int =
             over segments of that many points (N must be a multiple).
 
@@ -587,6 +595,8 @@ def fused_gather_mlp(feat: torch.Tensor, uv: torch.Tensor,
         raise ValueError("compute_dtype differs from the packed layers'")
     if frozenset(int(r) for r in res_layers) != layers.res_layers:
         raise ValueError("res_layers differ from the packed layers'")
+    if last_op not in LAST_OPS:
+        raise ValueError(f"unknown last_op {last_op!r}")
     if feat.device.type == "cpu":
         return fused_gather_mlp_ref(
             feat, uv, extra, layers, res_layers=res_layers,

@@ -17,7 +17,15 @@ Vertex colours of ``gen_mesh`` follow ``opt.normal_mode``: ``fd`` (four
 field taps a vertex), ``grad`` (the negative gradient of the fine field,
 one query and its backward a vertex, through ``models.coarse.query_mlp``'s
 autograd function) or ``mesh`` (geometric vertex normals on the host: no
-device colour pass, so it leaves the streamed path).
+device colour pass, so it leaves the streamed path).  With
+``use_color=3`` (``--use_color 3``) they are PIFu's texture field instead
+(``models.texture``, the reconstructor's ``netC``): its filter runs on the
+global image after the encoders, is attached to netG's last stack once a
+request, and every vertex is coloured through one fused query a 65,536-
+vertex chunk, in the blocks the fd pass takes, written through the same
+colour job; counters ``color_points`` / ``color_calls``, host seconds
+``tex_encode`` / ``tex_dispatch``.  The texture pass runs on the main
+device, unsharded.
 
 Every field query makes two kernel calls: the coarse level through
 ``ops.fused_query.fused_gather_mlp`` (it owes ``phi``), the fine level
@@ -166,13 +174,15 @@ class Reconstructor:
     _COLOR_CHUNK = 65536
 
     def __init__(self, model: MultiResPIFu, opt: Options, device=None,
-                 sharded_query=None, mesh=None):
+                 sharded_query=None, mesh=None, netC=None):
         self.device = resolve_device(device)
         p = next(model.parameters())
         if p.device.type != self.device.type:
             raise ValueError(f"model is on {p.device}, reconstructor on "
                              f"{self.device}")
         self.model = model.eval().requires_grad_(False)
+        self.netC = None if netC is None else \
+            netC.eval().requires_grad_(False)
         self.opt = opt
         self.mesh = mesh
         self._replicas: dict = {}
@@ -196,6 +206,8 @@ class Reconstructor:
         self.query_calls = 0            # of the newest mesh
         self.total_query_calls = 0      # since construction
         self.points_queried: dict[str, int] = {}
+        self.color_points = 0           # vertices the texture field coloured
+        self.color_calls = 0            # its fused queries (65,536 rows each)
         self.host_secs: dict[str, float] = {}
         self._phase = "field"
 
@@ -530,32 +542,40 @@ class Reconstructor:
                else self._calc_normal(verts, feats, calib))
         return _quantize_colors(nml)
 
-    def _normals_dispatch(self, vq: np.ndarray, lo, scale, feats, calib):
-        """Queue normal colours of u16-quantised verts ``vq [k * 65536,
-        3]``, one 65536-vertex chunk at a time (sharded over the mesh);
-        returns the ``_ColorJob`` part."""
+    def _chunk_dispatch(self, vq: np.ndarray, lo, scale, color_one):
+        """Queue the colours of u16-quantised verts ``vq [k * 65536, 3]``,
+        one 65536-vertex chunk at a time: ``color_one(verts [65536, 3])``
+        gives a chunk's uint8 colours (fd / grad normals, image colours or
+        the texture field, ``_color_fn``); returns the ``_ColorJob``
+        part."""
         chunk = self._COLOR_CHUNK
         vq_d = self._upload(vq.view(np.int16)).to(torch.int32) & 0xFFFF
         lo_d, scale_d = self._upload(lo), self._upload(scale)
-        cols = []
-        for j in range(len(vq) // chunk):
-            verts = _dequantize_verts(vq_d[j * chunk:(j + 1) * chunk],
-                                      lo_d, scale_d)
-            self._phase = "color"
-            cols.append(self._normals(verts, feats, calib))
+        self._phase = "color"
+        cols = [color_one(_dequantize_verts(vq_d[j * chunk:(j + 1) * chunk],
+                                            lo_d, scale_d))
+                for j in range(len(vq) // chunk)]
         return _to_host(torch.cat(cols))
 
-    def dispatch_block(self, block: np.ndarray, k: int, feats, calib):
+    def dispatch_block(self, block: np.ndarray, k: int, color_one):
         """Colour a block of world verts on its own bbox, padded to ``k``
         chunks (the streamed path's per-group dispatch)."""
         vq, lo, scale = self._quantize_u16(block, k * self._COLOR_CHUNK)
-        return self._normals_dispatch(vq, lo, scale, feats, calib)
+        return self._chunk_dispatch(vq, lo, scale, color_one)
 
-    def _chunked_start(self, dispatch, verts: np.ndarray) -> _ColorJob:
+    def _color_fn(self, feats, calib, tex=None):
+        """A chunk's colour function: the normals of the field (sharded
+        over the mesh), or with a texture map ``tex`` the texture
+        field's colours."""
+        if tex is None:
+            return lambda verts: self._normals(verts, feats, calib)
+        return lambda verts: self._tex_colors_one(verts, tex, calib)
+
+    def _chunked_start(self, color_one, verts: np.ndarray) -> _ColorJob:
         """Quantise all verts on the mesh bbox, pad to K chunks (a multiple
-        of 4 above 4) and hand them to ``dispatch(vq, lo, scale)`` in up to
-        4 groups, each landing in its own pinned buffer; the job pulls as
-        groups land."""
+        of 4 above 4) and colour them with ``color_one`` in up to 4 groups
+        (``_chunk_dispatch``), each landing in its own pinned buffer; the
+        job pulls as groups land."""
         V = len(verts)
         if V == 0:
             return _ColorJob([], 0)
@@ -565,16 +585,31 @@ class Reconstructor:
             K = -(-K // 4) * 4
         vq, lo, scale = self._quantize_u16(verts, K * chunk)
         rows = (K // 4 if K > 4 else K) * chunk
-        parts = [dispatch(vq[s:s + rows], lo, scale)
+        parts = [self._chunk_dispatch(vq[s:s + rows], lo, scale, color_one)
                  for s in range(0, K * chunk, rows)]
         return _ColorJob(parts, V)
 
     def color_by_normals_start(self, verts: np.ndarray, feats,
                                calib: torch.Tensor) -> _ColorJob:
         """Dispatch normal colouring (fd or grad) of all verts."""
-        return self._chunked_start(
-            lambda vq, lo, sc: self._normals_dispatch(vq, lo, sc, feats,
-                                                      calib), verts)
+        return self._chunked_start(self._color_fn(feats, calib), verts)
+
+    def encode_texture(self, img_global: torch.Tensor, g_feats):
+        """netC's filter on the global image's RGB, attached to netG's last
+        stack: the ``[h, w, C]`` map the colour queries gather from."""
+        if self.netC is None:
+            raise ValueError("texture colours need a texture network "
+                             "(netC) in the checkpoint")
+        return self.netC.attach(self.netC.filter(img_global[..., :3]),
+                                g_feats.im_feats[-1])
+
+    def _tex_colors_one(self, verts, tex, calib):
+        """uint8 colours of ``verts [M, 3]`` from the texture field: one
+        fused query over the chunk (its host side in
+        ``host_secs["tex_dispatch"]``)."""
+        with self.timed("tex_dispatch"):
+            self.color_calls += 1
+            return _quantize_colors(self.netC.query(tex, verts, calib))
 
     @staticmethod
     def _img_colors_one(verts, image, calib):
@@ -584,27 +619,13 @@ class Reconstructor:
         return _quantize_colors(
             geom.index(image[None], xyz[..., :2])[0][:, :3])
 
-    def _img_color_dispatch(self, vq: np.ndarray, lo, scale,
-                            image: torch.Tensor, calib: torch.Tensor):
-        """Queue image colours of u16-quantised verts, one 65536-vertex
-        chunk at a time (sharded over the mesh)."""
-        chunk = self._COLOR_CHUNK
-        vq_d = self._upload(vq.view(np.int16)).to(torch.int32) & 0xFFFF
-        lo_d, scale_d = self._upload(lo), self._upload(scale)
-        cols = [self._img_colors(_dequantize_verts(
-                    vq_d[j * chunk:(j + 1) * chunk], lo_d, scale_d),
-                    image, calib)
-                for j in range(len(vq) // chunk)]
-        return _to_host(torch.cat(cols))
-
     def color_by_image(self, verts: np.ndarray, image,
                        calib) -> np.ndarray:
         """Project verts into ``image [H, W, C]`` and sample colours."""
         with self._no_autograd():
             image, calib = self._tensor(image), self._tensor(calib)
             return self._chunked_start(
-                lambda vq, lo, sc: self._img_color_dispatch(
-                    vq, lo, sc, image, calib), verts)()
+                lambda v: self._img_colors(v, image, calib), verts)()
 
     def _sample_img_colors_start(self, verts, data, cleanup: bool):
         """Dispatch the device part of image colouring (colour gather and,
@@ -614,8 +635,7 @@ class Reconstructor:
         image = self._tensor(data["img"])[0]
         calib = self._tensor(data["calib"])
         job = self._chunked_start(
-            lambda vq, lo, sc: self._img_color_dispatch(vq, lo, sc, image,
-                                                        calib), verts)
+            lambda v: self._img_colors(v, image, calib), verts)
         xyz_host = None
         if cleanup:     # projected coords feed the back-colour inpainting
             xyz_host = _to_host(geom.orthogonal(
@@ -717,24 +737,32 @@ class Reconstructor:
     def _begin(self) -> None:
         self.query_calls = 0
         self.points_queried = {}
+        self.color_points = self.color_calls = 0
         self.host_secs = {}
 
     def _counters(self) -> dict:
         return dict(points_queried=dict(self.points_queried),
                     query_calls=self.query_calls,
+                    color_points=self.color_points,
+                    color_calls=self.color_calls,
                     host_secs={k: round(v, 4)
                                for k, v in self.host_secs.items()})
 
-    def _encode_subject(self, data: dict):
-        """``(calib, its host copy, feats, montage)``; the montage strip is
-        queued right behind the encoders, ahead of the field evaluation, so
-        its copy has long landed when the host writes it."""
+    def _encode_subject(self, data: dict, texture: bool = False):
+        """``(calib, its host copy, feats, montage, texture map or
+        None)``; the montage strip is queued right behind the encoders,
+        ahead of the field evaluation, so its copy has long landed when the
+        host writes it; the texture map (``texture``) right after it."""
         calib, calib_np = self._calibs(data)
         with self.timed("encode"):
-            feats = self.encode(self._tensor(data["img"]),
-                                self._tensor(data["img_512"]))
+            img_g = self._tensor(data["img_512"])
+            feats = self.encode(self._tensor(data["img"]), img_g)
             montage = self._montage_start(data, feats)
-        return calib, calib_np, feats, montage
+        tex = None
+        if texture:
+            with self.timed("tex_encode"):
+                tex = self.encode_texture(img_g, feats[1])
+        return calib, calib_np, feats, montage, tex
 
     def _march(self, feats, calib, calib_np, res: int, use_octree: bool):
         """Field evaluation and marching in one shot: the octree field
@@ -757,39 +785,44 @@ class Reconstructor:
         return self._to_world(verts_idx, faces, calib_np, res)
 
     def _device_stage_normals(self, data: dict, res: int,
-                              use_octree: bool = True):
-        """Everything of a normal-coloured mesh that launches kernels (and
-        the marching between the launches): ``(verts, faces, montage,
-        colour job)``.  The three-level octree streams its bands and
-        colours as it marches, unless the normals are the mesh's own,
-        which need the whole mesh (``_HostColorJob``, computed by whoever
-        first reads it)."""
+                              use_octree: bool = True, use_color: int = 0):
+        """Everything of a normal-coloured (``use_color`` 0) or
+        texture-coloured (3) mesh that launches kernels (and the marching
+        between the launches): ``(verts, faces, montage, colour job)``.
+        The three-level octree streams its bands and colours as it marches,
+        unless the normals are the mesh's own, which need the whole mesh
+        (``_HostColorJob``, computed by whoever first reads it)."""
         from .streamed import reconstruct_streamed
 
-        calib, calib_np, feats, montage = self._encode_subject(data)
-        mesh_normals = getattr(self.opt, "normal_mode", "fd") == "mesh"
+        texture = use_color == 3
+        calib, calib_np, feats, montage, tex = self._encode_subject(
+            data, texture)
+        color_one = self._color_fn(feats, calib, tex)
+        mesh_normals = (not texture
+                        and getattr(self.opt, "normal_mode", "fd") == "mesh")
         if (use_octree and not mesh_normals
                 and getattr(self.opt, "octree_levels", 3) == 3
                 and res % 8 == 0
                 and getattr(self.opt, "streamed_recon", True)):
             verts, faces, job, _ = reconstruct_streamed(
-                self, res, calib, calib_np, feats)
+                self, res, calib, calib_np, feats, color_one)
             if len(verts) == 0:
                 raise RuntimeError("marching produced an empty mesh")
-            return verts, faces, montage, job
-        verts, faces = self._march(feats, calib, calib_np, res, use_octree)
-        if mesh_normals:
-            job = _HostColorJob(lambda: compute_vertex_normals(verts, faces)
-                                * 0.5 + 0.5)
         else:
-            job = self.color_by_normals_start(verts, feats, calib)
+            verts, faces = self._march(feats, calib, calib_np, res,
+                                       use_octree)
+            job = (_HostColorJob(lambda: compute_vertex_normals(verts, faces)
+                                 * 0.5 + 0.5) if mesh_normals
+                   else self._chunked_start(color_one, verts))
+        if texture:
+            self.color_points += len(verts)
         return verts, faces, montage, job
 
     def _device_stage_img(self, data: dict, res: int, cleanup: bool,
                           use_octree: bool = True):
         """The same for an image-coloured mesh: ``(verts, faces, montage,
         finish)``, ``finish() -> (colors, xyz_proj)`` only waiting."""
-        calib, calib_np, feats, montage = self._encode_subject(data)
+        calib, calib_np, feats, montage, _ = self._encode_subject(data)
         verts, faces = self._march(feats, calib, calib_np, res, use_octree)
         return verts, faces, montage, self._sample_img_colors_start(
             verts, data, cleanup)
@@ -798,7 +831,7 @@ class Reconstructor:
                     sink: dict | None = None) -> dict:
         """The host tail of either stage (``gen_mesh_many`` runs it on its
         worker): waits for copies to land, formats, cleans up, writes."""
-        if use_color == 0:
+        if use_color in (0, 3):
             verts, faces, montage, job = stage
             return self._finish_normals(verts, faces, save_path, montage,
                                         job, sink)
@@ -826,8 +859,9 @@ class Reconstructor:
 
     # ------------------------------------------------------------ gen_mesh
     def gen_mesh(self, data: dict, save_path: str, resolution=None,
-                 use_octree=None) -> dict:
-        """Normal-coloured mesh of one subject, written as OBJ or PLY.
+                 use_octree=None, use_color: int = 0) -> dict:
+        """Normal-coloured mesh of one subject, written as OBJ or PLY;
+        ``use_color`` 3: coloured by the texture field instead.
 
         ``data``: ``img [B2, H, W, 6]`` local windows, ``img_512
         [1, h, w, 6]`` global image, ``calib [4, 4]`` (NumPy or tensors).
@@ -838,7 +872,8 @@ class Reconstructor:
         self._begin()
         with self._no_autograd():
             stage = self._device_stage_normals(data, res,
-                                               self._use_octree(use_octree))
+                                               self._use_octree(use_octree),
+                                               use_color)
             t1 = time.time()
             out = self._host_stage(stage, data, save_path, 0)
         t2 = time.time()
@@ -868,7 +903,8 @@ class Reconstructor:
     def gen_mesh_many(self, items, save_paths, use_color: int = 0,
                       resolution: int | None = None,
                       pipeline: bool | None = None) -> list[dict]:
-        """Two-slot subject pipeline: subject i's host tail (waiting for
+        """Two-slot subject pipeline (``use_color`` 0 fd normals, 1 / 2
+        image colours, 3 the texture field): subject i's host tail (waiting for
         its colours to land, face formatting, component cleanup,
         inpainting, mesh and montage write) runs on a worker thread while
         subject i+1's device stage (encode, field evaluation, marching,
@@ -898,7 +934,8 @@ class Reconstructor:
                 n_cores = os.cpu_count() or 1
             pipeline = n_cores > 1
         if not pipeline:
-            return [self.gen_mesh(d, p, res) if use_color == 0
+            return [self.gen_mesh(d, p, res, use_color=use_color)
+                    if use_color in (0, 3)
                     else self.gen_mesh_img_color(d, p, res,
                                                  cleanup=use_color == 2)
                     for d, p in pairs]
@@ -918,8 +955,9 @@ class Reconstructor:
                 t0 = time.time()
                 self._begin()
                 with self._no_autograd():
-                    stage = (self._device_stage_normals(data, res)
-                             if use_color == 0 else
+                    stage = (self._device_stage_normals(
+                                 data, res, use_color=use_color)
+                             if use_color in (0, 3) else
                              self._device_stage_img(data, res,
                                                     use_color == 2))
                 if pending is not None:

@@ -7,9 +7,9 @@ queued in bands of 4096 sub-cells, each followed by a non-blocking copy
 into its rows of one pinned ``refined`` buffer and a CUDA event.  While the
 device works through the bands, the host scans the head for surface cells
 and marches every cell whose data (its own and its 26 neighbours'
-sub-cells) has landed, dispatching fd-normal colouring per 4 x 65536
-vertices as it goes.  The native session's global edge dedup makes the
-result the one-shot mesh up to vertex order.
+sub-cells) has landed, dispatching fd-normal (or texture) colouring per
+4 x 65536 vertices as it goes.  The native session's global edge dedup
+makes the result the one-shot mesh up to vertex order.
 """
 
 from __future__ import annotations
@@ -86,9 +86,10 @@ def _march_order(cells, top8_h, top4_h, n, K1, K2, band_sz, n_bands):
 
 
 def reconstruct_streamed(recon, res: int, calib: torch.Tensor,
-                         calib_np: np.ndarray, feats):
+                         calib_np: np.ndarray, feats, color_one):
     """``calib`` on the device, ``calib_np`` its host copy (reading the
-    device copy back would wait for the queued bands).  Returns ``(verts,
+    device copy back would wait for the queued bands).  ``color_one``
+    colours a 65536-vertex chunk (``recon._color_fn``).  Returns ``(verts,
     faces, color job, field)``; ``field`` holds the host arrays ``(corner,
     top8, sub_q, top4, refined, cells_sorted)``."""
     factor = 8
@@ -165,8 +166,7 @@ def reconstruct_streamed(recon, res: int, calib: torch.Tensor,
                 n_pending += len(vw)
         while n_pending >= group_rows:
             with recon.timed("color_dispatch"):
-                parts.append(recon.dispatch_block(take_group(), 4, feats,
-                                                  calib))
+                parts.append(recon.dispatch_block(take_group(), 4, color_one))
 
     with IncrementalMarcher3(corner_h, top8_h, sub_q_h, top4_h, refined_np,
                              res, algorithm=recon.opt.marching_algo) as m:
@@ -181,7 +181,7 @@ def reconstruct_streamed(recon, res: int, calib: torch.Tensor,
         tail = pending[0] if len(pending) == 1 else np.concatenate(pending)
         with recon.timed("color_dispatch"):
             parts.append(recon.dispatch_block(tail, -(-n_pending // chunk),
-                                              feats, calib))
+                                              color_one))
     verts = np.concatenate(vparts) if vparts \
         else np.zeros((0, 3), np.float32)
     faces = np.concatenate(fparts) if fparts else np.zeros((0, 3), np.int32)

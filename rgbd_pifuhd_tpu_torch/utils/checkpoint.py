@@ -1,7 +1,9 @@
 """Flax msgpack checkpoints read and written without flax or msgpack.
 
 The JAX package writes a checkpoint as one ``flax.serialization`` msgpack
-file holding ``{epoch, opt, opt_netG, params}``.  ``msgpack`` is not
+file holding ``{epoch, opt, opt_netG, params}`` (a port checkpoint may add
+``netC`` and ``opt_netC``: PIFu's texture network, ``models.texture``,
+which the JAX package has not).  ``msgpack`` is not
 installed beside the card, so ``msgpack_restore`` below decodes the subset
 flax writes: maps, str, bin, ints, floats, bool, nil, arrays, and ext type
 1 — an ndarray packed as ``(shape, dtype name, raw bytes)``;
@@ -44,7 +46,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
-from .options import Options
+from .options import ColorConfig, Options
 
 _ND_EXT = 1            # flax _MsgpackExtType.ndarray
 
@@ -176,6 +178,8 @@ def load_checkpoint(path: str, device=None) -> dict:
         return x
 
     payload["params"] = _map_leaves(payload["params"], to_tensor)
+    if isinstance(payload.get("netC"), dict):
+        payload["netC"] = _map_leaves(payload["netC"], to_tensor)
     return payload
 
 
@@ -372,17 +376,24 @@ def msgpack_serialize(tree) -> bytes:
 
 
 def save_checkpoint(path: str, params: dict, opt: Options,
-                    opt_netG: Options | None = None, epoch: int = 0) -> None:
+                    opt_netG: Options | None = None, epoch: int = 0,
+                    netC: dict | None = None,
+                    opt_netC: ColorConfig | None = None) -> None:
     """Write ``{params, opt, opt_netG, epoch}`` as the JAX package's
     ``save_checkpoint`` does: ``params`` a flax variables tree (e.g.
     ``params_to_flax(model)``), the options through a JSON round trip
-    (tuples become lists)."""
+    (tuples become lists).  ``netC`` (the texture network's tree, which
+    the JAX package has not) adds ``netC`` and its sizes ``opt_netC``."""
     payload = {
         "params": params,
         "opt": json.loads(json.dumps(opt.to_dict())),
         "opt_netG": json.loads(json.dumps((opt_netG or opt).to_dict())),
         "epoch": epoch,
     }
+    if netC is not None:
+        payload["netC"] = netC
+        payload["opt_netC"] = json.loads(json.dumps(
+            (opt_netC or ColorConfig()).to_dict()))
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     w = _Writer()
     w.write(payload)

@@ -51,6 +51,30 @@ class PIFuLevelConfig:
         return 3 * (int(self.use_rgb) + int(self.use_depth))
 
 
+@dataclass
+class ColorConfig:
+    """Sizes of PIFu's texture network (netC, ``models.texture``) under
+    PIFu's option names where it has them (``lib/options.py``:
+    ``mlp_dim_color``, ``norm_color``); the ``ResnetFilter``'s width and
+    blocks are ``ResBlkPIFuNet``'s fixed ``ngf=64``, ``n_blocks=6``.  A
+    checkpoint that holds a netC embeds them as ``opt_netC``."""
+
+    mlp_dim_color: tuple = (513, 1024, 512, 256, 128, 3)
+    norm_color: str = "group"
+    ngf_color: int = 64
+    n_blocks_color: int = 6
+    compute_dtype: str = "float32"
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ColorConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: tuple(v) if isinstance(v, list) else v
+                      for k, v in d.items() if k in known})
+
+
 def default_global_config() -> PIFuLevelConfig:
     return PIFuLevelConfig(
         num_stack=4, hg_depth=2, hg_dim=256, hg_down="ave_pool",

@@ -162,6 +162,24 @@ def test_serve_loop_in_process(world):
     assert "JPEG" in got[1]["error"] and got[1]["request"] == str(jpg)
 
 
+def test_serve_loop_times_each_read(world):
+    """Every reply carries its subject's read time: the single subject's
+    and, in a directory request (the two-slot ``gen_mesh_many``), each
+    subject's own."""
+    opt = Options.from_dict(dict(
+        JOptions(resolution=RES, load_size=64).to_dict()))
+    recon = Reconstructor(world["tm"], opt, device="cpu")
+    out_dir = str(world["tmp"] / "reads")
+    os.makedirs(out_dir, exist_ok=True)
+    got = []
+    serve._serve_loop(recon, opt, out_dir,
+                      [f"{world['req']}::zwei\n", f"{world['req']}\n"],
+                      got.append)
+    assert [m["name"] for m in got] == ["zwei", "subject", "zwei"]
+    assert 0 < got[0]["read_secs"] <= got[0]["secs"]    # part of its secs
+    assert all(m["read_secs"] > 0 for m in got[1:]), got
+
+
 # ---------------------------------------------------------- gen_mesh_many
 @pytest.mark.parametrize("use_color,ext", [(0, "obj"), (1, "obj"),
                                            (2, "ply")])
