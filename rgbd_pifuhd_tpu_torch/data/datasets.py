@@ -21,6 +21,8 @@ folded into ``calib_local``.
 from __future__ import annotations
 
 import os
+import threading
+import time
 from typing import Any
 
 import numpy as np
@@ -30,7 +32,9 @@ from ..utils import imgproc, jpeg, png
 from .containment import MeshContainmentTester
 from .preprocessing import (
     addrect,
-    normalize_image,
+    native_pass,
+    prepare_map,
+    prepare_stack,
     rect_to_ndc_transform,
     resize_image,
 )
@@ -107,6 +111,16 @@ class TrainDataset:
                     self.testers[f[:-9]] = MeshContainmentTester(v, fc)
 
         self._style_cache = None
+        # items read, their maps prepared by the native pass, and the host
+        # seconds they spent preparing images and sampling points
+        self._stats = {"items": 0, "native_maps": 0, "image_s": 0.0,
+                       "sample_s": 0.0}
+        self._stats_lock = threading.Lock()
+
+    def prep_stats(self) -> dict:
+        """A copy of the item counters (the reader threads update them)."""
+        with self._stats_lock:
+            return dict(self._stats)
 
     def __len__(self) -> int:
         return len(self.img_files)
@@ -119,7 +133,7 @@ class TrainDataset:
                 p = os.path.join(self.root, "normal", n)
                 img = jpeg.read_rgb8(p) if os.path.exists(p) else np.full(
                     (size, size, 3), 127, np.uint8)
-                out.append(normalize_image(resize_image(img, size)))
+                out.append(prepare_map(img, size))
             self._style_cache = out
         return self._style_cache
 
@@ -181,35 +195,36 @@ class TrainDataset:
         calib, extrinsic = _calib_from_param(param, o.load_size)
         intr_local = calib @ np.linalg.inv(extrinsic)
 
-        img_big = resize_image(render, big)
-        dep_big = resize_image(depth, big)
+        t0 = time.perf_counter()
         if self.use_crop:
             rect = [256, int(self.rng.integers(10, 512)), 512, 512]
             img_big = addrect(resize_image(render, 1024), rect)
             dep_big = addrect(resize_image(depth, 1024), rect)
             trans = rect_to_ndc_transform(rect, 1024, 1024, flip_y=True)
             intr_local = trans @ intr_local
+            size_big = (rect[2], rect[3])
+        else:
+            img_big, dep_big, size_big = render, depth, big
         calib_local = intr_local @ extrinsic
-
-        def stack(rgb, dep):
-            return np.concatenate(
-                [normalize_image(rgb), normalize_image(dep)], axis=-1)
 
         res = {
             "name": subject,
-            "img": stack(img_big, dep_big)[None],              # [1, H, W, 6]
-            "img_512": stack(resize_image(render, local),
-                             resize_image(depth, local)),       # [h, w, 6]
-            "imF": normalize_image(resize_image(imF, big)),
-            "imB": normalize_image(resize_image(imB, big)),
+            "img": prepare_stack(img_big, dep_big, size_big)[None],
+            "img_512": prepare_stack(render, depth, local),   # [h, w, 6]
+            "imF": prepare_map(imF, big),
+            "imB": prepare_map(imB, big),
             "calib": calib.astype(np.float32),
             "calib_local": calib_local.astype(np.float32),
             "b_min": None if isinstance(self.b_min, str) else self.b_min,
             "b_max": None if isinstance(self.b_max, str) else self.b_max,
         }
+        image_s = time.perf_counter() - t0
+        native_maps = sum(native_pass(m) for m in (
+            img_big, dep_big, render, depth, imF, imB))
         f_style, b_style = self._load_styles(big)
         res["Fstyle"], res["Bstyle"] = f_style, b_style
 
+        sample_s = 0.0
         if self.load_mesh and subject in self.meshes:
             v, fc = self.meshes[subject]
             if isinstance(self.b_min, str):  # 'auto': per-subject box
@@ -218,13 +233,21 @@ class TrainDataset:
                 b_min, b_max = lo - margin, hi + margin
             else:
                 b_min, b_max = self.b_min, self.b_max
+            t0 = time.perf_counter()
             samples, labels = sample_occupancy_points(
                 v, fc, o.num_sample_inout, b_min, b_max,
                 self.rng, sigma=o.sigma, tester=self.testers[subject],
             )
+            sample_s = time.perf_counter() - t0
             res["samples"] = samples
             res["labels"] = labels
             res["b_min"], res["b_max"] = np.asarray(b_min), np.asarray(b_max)
+        with self._stats_lock:
+            st = self._stats
+            st["items"] += 1
+            st["native_maps"] += native_maps
+            st["image_s"] += image_s
+            st["sample_s"] += sample_s
         return res
 
 

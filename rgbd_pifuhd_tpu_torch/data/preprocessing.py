@@ -1,5 +1,4 @@
-"""Image preprocessing of the inference reader (port of
-``data/preprocessing.py``), NumPy only.
+"""Image preprocessing of the readers (port of ``data/preprocessing.py``).
 
 ``addrect`` is the zero-padded person-rect crop, ``rect_to_ndc_transform``
 the calibration of that crop, ``normalize_image`` the map to ``[-1, 1]``.
@@ -10,9 +9,17 @@ intermediate row sums kept as integers.  As in OpenCV, a column outside the
 source is clamped to the edge with its weight, while a row outside it keeps
 its fractional weights and reads the edge row twice (which rounds
 differently in fixed point when upscaling).
+
+``prepare_map`` / ``prepare_stack`` are ``normalize_image(resize_image(...))``
+and the RGB-D ``concatenate`` of two such maps, bit for bit.  A uint8 map
+takes one native pass (``native/imageprep.cc``: the same fixed-point resize
+and float32 map, written straight into the output's channels, the GIL
+released); any other dtype takes the NumPy chain.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 
@@ -105,3 +112,74 @@ def resize_image(img: np.ndarray, size) -> np.ndarray:
         out = (rows[y0] * (1.0 - fy)[:, None, None]
                + rows[y1] * fy[:, None, None]).astype(a.dtype)
     return out.reshape((h_out, w_out) + a.shape[2:])
+
+
+def _weights(frac: np.ndarray):
+    """``resize_image``'s 8-bit weights of the left and right taps, in
+    1/2048 units."""
+    return (np.rint((1.0 - frac) * 2048.0).astype(np.int32),
+            np.rint(frac * 2048.0).astype(np.int32))
+
+
+def native_pass(img: np.ndarray) -> bool:
+    """Whether ``prepare_map`` / ``prepare_stack`` take ``img`` through the
+    native pass: uint8 maps do."""
+    return img.dtype == np.uint8
+
+
+def _prepare_into(img: np.ndarray, size, out: np.ndarray, c_off: int):
+    """``normalize_image(resize_image(img, size))`` into ``out[..., c_off:
+    c_off + C]``; ``out`` is a C-contiguous float32 ``[h, w, channels]``."""
+    H, W = img.shape[:2]
+    src = img.reshape(H, W, -1)
+    C = src.shape[2]
+    h_out, w_out, out_c = out.shape
+    if not native_pass(img):
+        out[..., c_off:c_off + C] = normalize_image(resize_image(src, size))
+        return
+    from ..native import load_imageprep
+
+    lib = load_imageprep()
+    src = np.ascontiguousarray(src)
+
+    def p(a, t):
+        return a.ctypes.data_as(ctypes.POINTER(t))
+
+    u8, i64, i32, f32 = (ctypes.c_uint8, ctypes.c_int64, ctypes.c_int32,
+                         ctypes.c_float)
+    if (H, W) == (h_out, w_out):
+        lib.prep_same(p(src, u8), H * W, C, p(out, f32), out_c, c_off)
+        return
+    y0, y1, fy = _taps(h_out, H, clamp_frac=False)
+    x0, x1, fx = _taps(w_out, W)
+    (by0, by1), (ax0, ax1) = _weights(fy), _weights(fx)
+    lib.prep_resized(p(src, u8), W, C, p(y0, i64), p(y1, i64), p(by0, i32),
+                     p(by1, i32), h_out, p(x0, i64), p(x1, i64), p(ax0, i32),
+                     p(ax1, i32), w_out, p(out, f32), out_c, c_off)
+
+
+def _out_hw(size) -> tuple[int, int]:
+    w_out, h_out = (size, size) if np.isscalar(size) else size
+    return int(h_out), int(w_out)
+
+
+def prepare_map(img: np.ndarray, size) -> np.ndarray:
+    """``normalize_image(resize_image(img, size))`` of an HWC (or HW) map,
+    bit for bit; ``size`` as ``resize_image`` takes it."""
+    a = np.asarray(img)
+    h, w = _out_hw(size)
+    out = np.empty((h, w, int(np.prod(a.shape[2:]))), np.float32)
+    _prepare_into(a, size, out, 0)
+    return out.reshape((h, w) + a.shape[2:])
+
+
+def prepare_stack(rgb: np.ndarray, depth: np.ndarray, size) -> np.ndarray:
+    """``np.concatenate([prepare_map(rgb, size), prepare_map(depth, size)],
+    -1)`` of two HWC maps: RGB in the first channels, depth after them."""
+    rgb, depth = np.asarray(rgb), np.asarray(depth)
+    h, w = _out_hw(size)
+    c = rgb.shape[2]
+    out = np.empty((h, w, c + depth.shape[2]), np.float32)
+    _prepare_into(rgb, size, out, 0)
+    _prepare_into(depth, size, out, c)
+    return out

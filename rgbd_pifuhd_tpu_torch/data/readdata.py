@@ -21,8 +21,7 @@ from typing import Any
 import numpy as np
 
 from ..utils import jpeg, png
-from .preprocessing import (addrect, normalize_image, rect_to_ndc_transform,
-                            resize_image)
+from .preprocessing import addrect, prepare_stack, rect_to_ndc_transform
 
 _IMG_EXT = (".jpg", ".jpeg", ".png")
 
@@ -71,17 +70,13 @@ class InferenceDataset:
         depth = addrect(depth, rect)
         trans_mat = rect_to_ndc_transform(rect, w, h, flip_y=False)
 
-        def stack(size):
-            rgb = normalize_image(resize_image(im, size))
-            dep = normalize_image(resize_image(depth, size))
-            return np.concatenate([rgb, dep], axis=-1)  # [H, W, 6]
-
         calib = np.identity(4, dtype=np.float32)
         calib[1, 1] = -1.0
         return {
             "name": name,
-            "img": stack(self.load_size)[None],     # [B2=1, H, W, 6]
-            "img_512": stack(512)[None],            # [1, 512, 512, 6]
+            # [B2=1, H, W, 6] and [1, 512, 512, 6]
+            "img": prepare_stack(im, depth, self.load_size)[None],
+            "img_512": prepare_stack(im, depth, 512)[None],
             "calib": calib,
             "calib_world": trans_mat.astype(np.float32),
             "b_min": np.array([-1.0, -1.0, -1.0]),

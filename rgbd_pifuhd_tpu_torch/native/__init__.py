@@ -5,10 +5,12 @@
 quantisation, OBJ writer) and ``raster.cc`` (the orthographic z-buffer
 rasteriser of the synthetic training trees) are copies of the JAX package's
 sources; ``grabcut.cc`` (GrabCut segmentation, where the JAX package calls
-OpenCV) and ``containment.cc`` (the point-in-mesh parity of
-``data/containment.py``, where the JAX package loops in NumPy; built
-without FMA contraction so its answers are NumPy's) are the port's own.  A failed build raises: this port has no NumPy
-fallback for them.
+OpenCV), ``containment.cc`` (the point-in-mesh parity of
+``data/containment.py``, where the JAX package loops in NumPy) and
+``imageprep.cc`` (the readers' resize and normalisation of uint8 maps in
+one pass, where the JAX package chains NumPy calls) are the port's own;
+the last two are built without FMA contraction so their answers are
+NumPy's.  A failed build raises: this port has no NumPy fallback for them.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ def build_all() -> None:
     load_raster()
     load_grabcut()
     load_containment()
+    load_imageprep()
 
 
 def load_marching():
@@ -184,4 +187,30 @@ def load_containment():
             dp, ctypes.c_int64, dp, i64p, i64p, dp, dp, dp, ctypes.c_int64,
             ctypes.POINTER(ctypes.c_uint8), ctypes.c_int]
         _CACHE["containment"] = lib
+        return lib
+
+
+def load_imageprep():
+    """ctypes handle to the readers' one-pass image preparation (raises on
+    failure)."""
+    with _LOCK:
+        if "imageprep" in _CACHE:
+            return _CACHE["imageprep"]
+        lib = ctypes.CDLL(_build_lib("imageprep", "imageprep.cc",
+                                     ("-ffp-contract=off",)))
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        fp = ctypes.POINTER(ctypes.c_float)
+        i64 = ctypes.c_int64
+        # src, pixels, channels, out, out channels, channel offset
+        lib.prep_same.restype = None
+        lib.prep_same.argtypes = [u8p, i64, i64, fp, i64, i64]
+        # src, W, C, row taps (y0, y1, by0, by1), h_out, column taps
+        # (x0, x1, ax0, ax1), w_out, out, out channels, channel offset
+        lib.prep_resized.restype = None
+        lib.prep_resized.argtypes = [u8p, i64, i64, i64p, i64p, i32p, i32p,
+                                     i64, i64p, i64p, i32p, i32p, i64, fp,
+                                     i64, i64]
+        _CACHE["imageprep"] = lib
         return lib

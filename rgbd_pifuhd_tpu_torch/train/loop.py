@@ -193,6 +193,13 @@ def _run(opt: Options, dataset, model, step_fn, sched, collate, logger,
                 if graph_stats is not None:
                     n = graph_stats["eager"] + graph_stats["replays"]
                     extra += f" replayed: {graph_stats['replays'] / n:.0%}"
+                # the reader's maps through the native pass, and its host
+                # ms an item preparing images and sampling points
+                st = dataset.prep_stats()
+                k = max(st["items"], 1)
+                extra += (f" native maps: {st['native_maps']}"
+                          f" image: {st['image_s'] * 1e3 / k:.1f}ms"
+                          f" sample: {st['sample_s'] * 1e3 / k:.1f}ms")
                 logger.log_iter(epoch, global_step,
                                 steps_per_epoch * opt.num_epoch, loss,
                                 sched(global_step), extra)
