@@ -16,7 +16,7 @@ from ..models.texture import TexPIFu, color_query
 from ..ops.fused_mlp import fused_point_mlp
 from ..ops.fused_query import fused_gather_mlp, gather_concat
 from ..parallel import make_device_mesh
-from ..recon.pipeline import Reconstructor
+from ..recon.pipeline import Reconstructor, color_plan
 from ..utils import checkpoint as ckpt
 from ..utils.device import resolve_device
 from ..utils.options import ColorConfig, Options
@@ -76,10 +76,15 @@ def load_reconstructor(opt: Options, device: str, full_opts: bool = False):
                           netC=netC), opt_model, path)
 
 
-def require_texture(recon: Reconstructor, opt: Options, path: str) -> None:
-    """``--use_color 3`` colours with the checkpoint's texture network:
-    refuse a checkpoint without one."""
-    if opt.use_color == 3 and recon.netC is None:
+def check_use_color(recon: Reconstructor, opt: Options, path: str) -> None:
+    """Refuse a ``--use_color`` the reconstructor cannot serve: an unknown
+    one, or PIFu's texture network (3) from a checkpoint ``path`` that
+    holds none."""
+    try:
+        plan = color_plan(opt.use_color, opt.normal_mode)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    if plan.colors == "texture" and recon.netC is None:
         raise SystemExit(f"--use_color 3 colours with PIFu's texture network, "
                          f"and the checkpoint {path} holds none (no netC)")
 
@@ -92,9 +97,8 @@ def load_item(dataset, i: int) -> dict:
 
 
 def mesh_path(out_dir: str, data: dict, opt: Options) -> str:
-    ext = getattr(opt, "mesh_format", "obj")
-    return os.path.join(out_dir,
-                        f"result_{data['name']}_{opt.resolution}.{ext}")
+    return os.path.join(
+        out_dir, f"result_{data['name']}_{opt.resolution}.{opt.mesh_format}")
 
 
 def launch_counts(recon: Reconstructor) -> dict:

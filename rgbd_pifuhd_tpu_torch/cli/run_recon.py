@@ -22,12 +22,13 @@ regenerates its synthetic capsule subject and reconstructs it.
 ``TrainDataset`` and reconstructs it with a freshly initialised model of
 the command line's widths (seed 0).
 
-use_color: 0 = fd-normal colours (``gen_mesh``), 1 = image colours, 2 =
-image colours + largest-component cleanup + back inpainting, 3 = PIFu's
-texture network (``models.texture``), which the checkpoint must hold as
-``netC`` with its sizes ``opt_netC`` (refused otherwise).  No trained netC
-is in the repository yet; the benchmark draws one from a seed, so such
-colours are not a person's until a trained netC exists.
+use_color, every value through ``Reconstructor.gen_mesh``: 0 = normal
+colours by ``--normal_mode``, 1 = image colours, 2 = image colours +
+largest-component cleanup + back inpainting, 3 = PIFu's texture network
+(``models.texture``), which the checkpoint must hold as ``netC`` with its
+sizes ``opt_netC`` (refused otherwise).  No trained netC is in the
+repository yet; the benchmark draws one from a seed, so such colours are
+not a person's until a trained netC exists.
 
 The last line printed is ``launches {...}``: the process's kernel launch
 counts.  On a host with several GPUs and ``--device cuda`` every field
@@ -42,8 +43,8 @@ import os
 import sys
 
 from ..data.readdata import InferenceDataset
-from .common import (launch_counts, load_item, load_reconstructor,
-                     local_mesh, mesh_path, require_texture)
+from .common import (check_use_color, launch_counts, load_item,
+                     load_reconstructor, local_mesh, mesh_path)
 
 _ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "assets")
@@ -106,21 +107,21 @@ def main(argv=None):
     if demo_trained:
         argv.remove("--demo-trained")
     opt, device = parse_options(argv, with_device=True)
-    if opt.use_color not in (0, 1, 2, 3):
-        raise SystemExit(f"unknown use_color {opt.use_color}")
 
     if demo_sphere:
         recon, dataset = _demo_sphere(opt, device)
+        path = "of --demo-sphere"
     elif demo_trained:
         if not opt.load_netMR_checkpoint_path:
             opt.load_netMR_checkpoint_path = os.path.join(
                 _ASSETS, "bench_tiny", "ckpt")
-        recon, opt_model, _ = load_reconstructor(opt, device, full_opts=True)
+        recon, opt_model, path = load_reconstructor(opt, device,
+                                                    full_opts=True)
         dataset = _CapsuleDemo(opt_model.load_size)
     else:
         recon, opt_model, path = load_reconstructor(opt, device)
-        require_texture(recon, opt, path)
         dataset = InferenceDataset(opt.dataroot, opt.load_size)
+    check_use_color(recon, opt, path)
     out_dir = os.path.join(opt.results_path, opt.name, "recon")
     os.makedirs(out_dir, exist_ok=True)
 
@@ -149,12 +150,8 @@ def main(argv=None):
             data = load_item(dataset, i)
             save_path = mesh_path(out_dir, data, opt)
             print(save_path)
-            if opt.use_color in (0, 3):
-                r = recon.gen_mesh(data, save_path, opt.resolution,
-                                   use_color=opt.use_color)
-            else:
-                r = recon.gen_mesh_img_color(data, save_path, opt.resolution,
-                                             cleanup=opt.use_color == 2)
+            r = recon.gen_mesh(data, save_path, opt.resolution,
+                               use_color=opt.use_color)
             print(f"  verts={len(r['verts'])} secs={r['secs']:.2f}")
     print("launches " + json.dumps(launch_counts(recon)), flush=True)
 

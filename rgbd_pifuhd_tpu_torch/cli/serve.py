@@ -45,8 +45,8 @@ import time
 import traceback
 
 from ..data.readdata import InferenceDataset
-from .common import (launch_counts, load_item, load_reconstructor,
-                     mesh_path, require_texture)
+from .common import (check_use_color, launch_counts, load_item,
+                     load_reconstructor, mesh_path)
 
 
 def _serve_loop(recon, opt, out_dir: str, requests, emit):
@@ -95,13 +95,8 @@ def _serve_loop(recon, opt, out_dir: str, requests, emit):
                 data = load_item(dataset, idxs[0])
                 t_read = time.time() - t0
                 save_path = mesh_path(out_dir, data, opt)
-                if opt.use_color in (0, 3):
-                    r = recon.gen_mesh(data, save_path, opt.resolution,
-                                       use_color=opt.use_color)
-                else:
-                    r = recon.gen_mesh_img_color(
-                        data, save_path, opt.resolution,
-                        cleanup=opt.use_color == 2)
+                r = recon.gen_mesh(data, save_path, opt.resolution,
+                                   use_color=opt.use_color)
                 emit({"name": data["name"], "mesh": save_path,
                       "verts": int(len(r["verts"])),
                       "secs": round(time.time() - t0, 3),
@@ -116,10 +111,8 @@ def main(argv=None):
 
     opt, device = parse_options(
         list(sys.argv[1:] if argv is None else argv), with_device=True)
-    if opt.use_color not in (0, 1, 2, 3):
-        raise SystemExit(f"unknown use_color {opt.use_color}")
     recon, opt_model, path = load_reconstructor(opt, device)
-    require_texture(recon, opt, path)
+    check_use_color(recon, opt, path)
     out_dir = os.path.join(opt.results_path, opt.name, "serve")
     os.makedirs(out_dir, exist_ok=True)
 

@@ -33,6 +33,10 @@ _SKIP_THRESHOLD = 0.05
 
 QueryFn = Callable[..., torch.Tensor]
 
+# the budget diagnostics, in the order of pack_sparse3_head's vector
+DIAG_KEYS = ("kth_activity", "n_active", "budget_cells", "kth_subactivity",
+             "n_active_subcells", "budget_subcells")
+
 
 def create_grid_transform(resolution: int, b_min=(-1.0, -1.0, -1.0),
                           b_max=(1.0, 1.0, 1.0)) -> np.ndarray:
@@ -297,15 +301,18 @@ def pack_sparse3_head(corner_q, top8, sub_q, top4, diag):
     dvec = torch.stack([
         diag[k].float() if isinstance(diag[k], torch.Tensor)
         else torch.full((), float(diag[k]), device=dev)
-        for k in ("kth_activity", "n_active", "budget_cells",
-                  "kth_subactivity", "n_active_subcells", "budget_subcells")])
+        for k in DIAG_KEYS])
     return data, ids, dvec
 
 
-def diag_from_dvec(dvec: np.ndarray) -> dict:
-    d = {"kth_activity": float(dvec[0]), "n_active": int(dvec[1]),
-         "budget_cells": int(dvec[2]), "kth_subactivity": float(dvec[3]),
-         "n_active_subcells": int(dvec[4]), "budget_subcells": int(dvec[5])}
+def diag_from_dvec(dvec) -> dict:
+    """The octree's budget diagnostics on the host, one dict for both
+    octrees: ``dvec`` is ``pack_sparse3_head``'s vector read back, or a
+    two-level phase's diag dict, which has no sub-cells (zeros)."""
+    if isinstance(dvec, dict):
+        dvec = [dvec.get(k, 0) for k in DIAG_KEYS]
+    d = {k: (float if k.startswith("kth") else int)(v)
+         for k, v in zip(DIAG_KEYS, dvec)}
     d["overflow_cells"] = max(0, d["n_active"] - d["budget_cells"])
     d["overflow_subcells"] = max(
         0, d["n_active_subcells"] - d["budget_subcells"])

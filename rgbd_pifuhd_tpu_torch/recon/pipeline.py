@@ -1,8 +1,6 @@
-"""Mesh reconstruction (port of ``recon/pipeline.py``): ``gen_mesh``
-(normal-coloured), ``gen_mesh_img_color`` (image colours, optional
-largest-component cleanup and back-colour inpainting), the two-slot
-multi-subject ``gen_mesh_many``, and ``CoarseReconstructor`` (the coarse
-model alone).
+"""Mesh reconstruction (port of ``recon/pipeline.py``): ``gen_mesh`` (every
+``use_color``), the two-slot multi-subject ``gen_mesh_many``, and
+``CoarseReconstructor`` (the coarse model alone).
 
 encode (normal nets + both hourglass encoders) -> field evaluation on the
 device (``opt.octree_levels`` 3: stride 8 -> 4 -> 1, the main path; 2:
@@ -10,29 +8,33 @@ stride 8 -> 1; ``use_octree=False``: every lattice point) -> pull (4-bit
 sparse, or the dense f32 volume) -> native marching -> vertex colours ->
 OBJ (streamed) or binary PLY, and the montage PNG (input and predicted
 normal maps) beside the mesh.  With ``opt.streamed_recon`` (default) the
-three-level ``gen_mesh`` dispatches phase 3 in bands and marches them as
-they land (``recon/streamed.py``).
+three-level octree dispatches phase 3 in bands and marches them as they
+land (``recon/streamed.py``).  Every octree evaluation runs in one budget
+loop (``_budgeted``): an overflowing budget is right-sized and the
+evaluation dispatched again.
 
-Vertex colours of ``gen_mesh`` follow ``opt.normal_mode``: ``fd`` (four
-field taps a vertex), ``grad`` (the negative gradient of the fine field,
-one query and its backward a vertex, through ``models.coarse.query_mlp``'s
-autograd function) or ``mesh`` (geometric vertex normals on the host: no
-device colour pass, so it leaves the streamed path).  With
-``use_color=3`` (``--use_color 3``) they are PIFu's texture field instead
-(``models.texture``, the reconstructor's ``netC``): its filter runs on the
-global image after the encoders, is attached to netG's last stack once a
-request, and every vertex is coloured through one fused query a 65,536-
-vertex chunk, in the blocks the fd pass takes, written through the same
-colour job; counters ``color_points`` / ``color_calls``, host seconds
-``tex_encode`` / ``tex_dispatch``.  The texture pass runs on the main
-device, unsharded.
+``color_plan`` reads ``use_color`` (with ``opt.normal_mode``) once a mesh
+into what the stages do.  ``use_color`` 0: the field's normals by
+``opt.normal_mode``: ``fd`` (four field taps a vertex), ``grad`` (the
+negative gradient of the fine field, one query and its backward a vertex,
+through ``models.coarse.query_mlp``'s autograd function) or ``mesh``
+(geometric vertex normals on the host: no device colour pass, so it leaves
+the streamed path).  1: the subject image's colours, in the subject's
+world (``calib_world``), one-shot as in the JAX package; 2: those with
+largest-component cleanup and back-colour inpainting.  3: PIFu's texture
+field (``models.texture``, the reconstructor's ``netC``): its filter runs
+on the global image after the encoders, is attached to netG's last stack
+once a request, and every vertex is coloured through one fused query a
+65,536-vertex chunk, in the blocks the fd pass takes; counters
+``color_points`` / ``color_calls``, host seconds ``tex_encode`` /
+``tex_dispatch``.  The texture pass runs on the main device, unsharded.
 
 Every field query makes two kernel calls: the coarse level through
 ``ops.fused_query.fused_gather_mlp`` (it owes ``phi``), the fine level
 through the same kernel, or through ``ops.fused_mlp.fused_point_mlp`` when
 its MLP is norm-free (``models.coarse.query_mlp``).  Host transfers use
-pinned buffers and one CUDA event per transfer, so the host marches and
-writes while the device computes.
+pinned buffers and one CUDA event per transfer (``recon/landing.py``), so
+the host marches and writes while the device computes.
 
 With a device ``mesh`` (``parallel``) every field query is sharded over
 its point axis and every colour pass over the 65,536-vertex chunk, one
@@ -50,6 +52,7 @@ import os
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -63,11 +66,12 @@ from ..utils.device import resolve_device
 from ..utils.options import Options
 from ..utils.png import write_png
 from . import grid as grid_mod
+from .landing import ColorJob, Landed, to_host
 from .marching import (marching_tetrahedra, marching_tetrahedra_sparse,
                        marching_tetrahedra_sparse3)
 from .mesh import (compute_vertex_normals, format_faces_block,
-                   keep_largest_component, save_obj_with_color,
-                   save_ply_with_color)
+                   keep_largest_component, save_ply_with_color)
+from .streamed import reconstruct_streamed
 
 
 def _round_up(x: int, q: int) -> int:
@@ -86,81 +90,33 @@ def _dequantize_verts(vq: torch.Tensor, lo: torch.Tensor,
     return vq.float() * scale[None, :] + lo[None, :]
 
 
-class _Landed:
-    """Completion marker of work queued on the current stream (a CUDA
-    event; on the CPU the work is already done)."""
-
-    def __init__(self, device: torch.device):
-        self._ev = None
-        if device.type == "cuda":
-            self._ev = torch.cuda.Event()
-            self._ev.record()
-
-    def wait(self) -> None:
-        if self._ev is not None:
-            self._ev.synchronize()
-
-
-def _to_host(t: torch.Tensor):
-    """Queue a non-blocking copy into a pinned host buffer; returns the
-    host tensor and its completion marker."""
-    host = torch.empty(t.shape, dtype=t.dtype,
-                       pin_memory=t.device.type == "cuda")
-    host.copy_(t, non_blocking=True)
-    return host, _Landed(t.device)
-
-
-class _ColorJob:
-    """In-flight fd-normal colouring: ``parts`` are ``(host uint8 [rows, 3],
-    landed)`` per dispatched group, in row order.  ``groups()`` yields
-    ``(row0, colors f32 [n, 3])`` as each group lands; ``job()`` returns
-    all ``[V, 3]`` colours."""
-
-    def __init__(self, parts, V: int):
-        self._parts, self._V = parts, V
-
-    def groups(self):
-        row = 0
-        for host, landed in self._parts:
-            landed.wait()
-            a = host.numpy().reshape(-1, 3)
-            n = min(len(a), self._V - row)
-            if n <= 0:
-                break
-            out = a[:n].astype(np.float32)
-            out *= np.float32(1.0 / 255.0)
-            yield row, out
-            row += n
-
-    def __call__(self) -> np.ndarray:
-        cols = [c for _, c in self.groups()]
-        if not cols:
-            return np.zeros((0, 3), np.float32)
-        return cols[0] if len(cols) == 1 else np.concatenate(cols)
-
-
-class _HostColorJob:
-    """``_ColorJob``-shaped handle for colours computed on the host (the
-    geometric normals of ``normal_mode='mesh'``): ``compute`` runs once, on
-    first use (so on ``gen_mesh_many``'s worker thread)."""
-
-    def __init__(self, compute):
-        self._fn, self._c = compute, None
-
-    def __call__(self) -> np.ndarray:
-        if self._c is None:
-            self._c = np.asarray(self._fn(), np.float32)
-        return self._c
-
-    def groups(self):
-        c = self()
-        if len(c):
-            yield 0, c
-
-
 def _normalized(nml: torch.Tensor) -> torch.Tensor:
     norm = torch.linalg.norm(nml, dim=-1, keepdim=True)
     return nml / torch.clamp(norm, min=1e-8)
+
+
+@dataclass(frozen=True)
+class ColorPlan:
+    """What a mesh's colours ask of the stages (``color_plan``)."""
+
+    # per-vertex colours: "fd" or "grad" normals of the field, "texture"
+    # (netC's map encoded), "image" samples (in the subject's world), or
+    # "mesh": the mesh's own normals, on the host
+    colors: str
+    streams: bool       # a three-level octree marches bands as they land
+    cleanup: bool       # largest component + back-colour inpainting, from
+                        # the projected vertices the device pulls
+
+
+def color_plan(use_color: int, normal_mode: str) -> ColorPlan:
+    """The one reading of ``use_color`` and ``normal_mode``: 0 the field's
+    normals by ``normal_mode``, 1 image colours, 2 image colours with
+    cleanup, 3 PIFu's texture field."""
+    if use_color not in (0, 1, 2, 3):
+        raise ValueError(f"unknown use_color {use_color}")
+    colors = {0: normal_mode, 3: "texture"}.get(use_color, "image")
+    return ColorPlan(colors, streams=colors not in ("image", "mesh"),
+                     cleanup=use_color == 2)
 
 
 class Reconstructor:
@@ -262,14 +218,6 @@ class Reconstructor:
             l_feats, g_feats, verts[None, None], calib[None, None],
             calib[None])[0]
 
-    def _no_autograd(self):
-        """The context of a whole mesh: ``inference_mode``, except for
-        ``normal_mode='grad'``, whose backward cannot save inference
-        tensors (features made there), so ``no_grad``."""
-        if getattr(self.opt, "normal_mode", "fd") == "grad":
-            return torch.no_grad()
-        return torch.inference_mode()
-
     def _montage_start(self, data: dict, feats):
         """Queue the montage strip — the global image's RGB and the
         predicted normal maps side by side, quantised to uint8 on the
@@ -278,7 +226,7 @@ class Reconstructor:
         panels = [self._tensor(data["img_512"])[0][..., :3]]
         panels += [m[0].float() for m in (g_feats.nml_front,
                                           g_feats.nml_back) if m is not None]
-        return _to_host(_quantize_colors(torch.cat(panels, dim=1)))
+        return to_host(_quantize_colors(torch.cat(panels, dim=1)))
 
     @staticmethod
     def _write_montage(montage, save_path: str) -> None:
@@ -298,16 +246,15 @@ class Reconstructor:
         escalated before, else the options'."""
         n = res // 8
         esc = self._esc_budgets.setdefault(res, {})
-        budget = esc.get("cells") or min(
-            getattr(self.opt, "num_refine_cells", 12288), n ** 3)
-        sub = esc.get("subcells") or min(
-            getattr(self.opt, "num_refine_subcells", 32768), budget * 8)
+        budget = esc.get("cells") or min(self.opt.num_refine_cells, n ** 3)
+        sub = esc.get("subcells") or min(self.opt.num_refine_subcells,
+                                         budget * 8)
         return budget, sub
 
     def escalate(self, res: int, d: dict, budget: int, sub_budget: int):
         """Right-size the budgets to the measured active counts (+5%,
-        chunk-quantum rounded); returns the new pair or None when nothing
-        overflowed."""
+        chunk-quantum rounded; the two-level octree has no sub-cells);
+        returns the new pair or None when nothing overflowed."""
         n3 = (res // 8) ** 3
         grew = False
         if d["overflow_cells"] > 0 and budget < n3:
@@ -320,9 +267,10 @@ class Reconstructor:
             grew = True
         if not grew:
             return None
+        subs = (f", sub-cells {d['budget_subcells']}->{sub_budget}"
+                if d["budget_subcells"] else "")
         print(f"[recon] escalating refinement budget: cells "
-              f"{d['budget_cells']}->{budget}, sub-cells "
-              f"{d['budget_subcells']}->{sub_budget} (active: "
+              f"{d['budget_cells']}->{budget}{subs} (active: "
               f"{d['n_active']} cells, {d['n_active_subcells']} sub-cells)")
         self._esc_budgets[res].update(cells=budget, subcells=sub_budget)
         return budget, sub_budget
@@ -333,43 +281,65 @@ class Reconstructor:
             warnings.warn(f"refinement budget overflow: {d['n_active']} "
                           f"active cells > budget {d['budget_cells']}",
                           RuntimeWarning, stacklevel=3)
-        if d.get("overflow_subcells", 0) > 0:
+        if d["overflow_subcells"] > 0:
             warnings.warn(f"sub-cell refinement budget overflow: "
                           f"{d['n_active_subcells']} active sub-cells > "
                           f"budget {d['budget_subcells']}", RuntimeWarning,
                           stacklevel=3)
 
-    def evaluate_field(self, l_feats, g_feats, calib: torch.Tensor,
-                       resolution: int):
-        """One-shot octree evaluation with budget auto-escalation; returns
-        the host arrays that feed ``extract_mesh``: ``(corner_q, top8,
-        sub_q, top4, refined, scan_cells)`` for the three-level octree
-        (``opt.octree_levels == 3`` and ``resolution % 8 == 0``), else the
-        two-level ``(corner_q, top_idx, refined, scan_cells)``."""
-        res = resolution
-        calib_inv = torch.linalg.inv_ex(calib)[0]
+    def _budgeted(self, res: int, attempt):
+        """The octree budget loop: ``attempt(cells, sub_cells)`` dispatches
+        an evaluation at the budgets and returns ``(result, diagnostics)``
+        (``grid.diag_from_dvec``); while a budget overflows (and
+        ``opt.auto_escalate_budget``), ``escalate`` right-sizes it and the
+        evaluation runs again.  Returns the last result."""
         budget, sub_budget = self.budgets(res)
-        auto = getattr(self.opt, "auto_escalate_budget", True)
-        self._phase = "field"
-        if getattr(self.opt, "octree_levels", 3) != 3 or res % 8:
-            return self._evaluate_two_level(l_feats, g_feats, calib,
-                                            calib_inv, res, budget, auto)
         while True:
-            corner, top8, sub_q, top4, refined, diag = \
-                grid_mod.eval_grid_three_phase_sparse(
-                    self._query, res, calib_inv, l_feats, g_feats, calib,
-                    budget_cells=budget, budget_subcells=sub_budget)
-            data, ids, dvec = grid_mod.pack_sparse3_head(
-                corner, top8, sub_q, top4, diag)
-            d = grid_mod.diag_from_dvec(dvec.cpu().numpy())
-            grown = self.escalate(res, d, budget, sub_budget) if auto \
-                else None
+            out, d = attempt(budget, sub_budget)
+            grown = self.escalate(res, d, budget, sub_budget) \
+                if self.opt.auto_escalate_budget else None
             if grown is None:
                 break
             budget, sub_budget = grown
         self._check_budget(d)
+        return out
+
+    def evaluate_field(self, l_feats, g_feats, calib: torch.Tensor,
+                       resolution: int):
+        """One-shot octree evaluation in the budget loop; returns the host
+        arrays that feed ``extract_mesh``: ``(corner_q, top8, sub_q, top4,
+        refined, scan_cells)`` for the three-level octree
+        (``opt.octree_levels == 3`` and ``resolution % 8 == 0``), else the
+        two-level (stride 8 -> 1) ``(corner_q, top_idx, refined,
+        scan_cells)``."""
+        res = resolution
+        calib_inv = torch.linalg.inv_ex(calib)[0]
+        args = (self._query, res, calib_inv, l_feats, g_feats, calib)
+        self._phase = "field"
+        if self.opt.octree_levels != 3 or res % 8:
+            def two_level(budget, _):
+                *out, diag = grid_mod.eval_grid_two_phase_sparse(
+                    *args, factor=8, budget_cells=budget)
+                return out, grid_mod.diag_from_dvec(diag)
+
+            corner, top, refined = self._budgeted(res, two_level)
+            corner, top = corner.cpu().numpy(), top.cpu().numpy()
+            cells, _ = grid_mod.sparse_scan_cells(corner, top, res)
+            return corner, top, np.ascontiguousarray(refined.cpu().numpy()), \
+                cells
+
+        def three_level(budget, sub_budget):
+            corner, top8, sub_q, top4, refined, diag = \
+                grid_mod.eval_grid_three_phase_sparse(
+                    *args, budget_cells=budget, budget_subcells=sub_budget)
+            data, ids, dvec = grid_mod.pack_sparse3_head(
+                corner, top8, sub_q, top4, diag)
+            return (data, ids, refined), \
+                grid_mod.diag_from_dvec(dvec.cpu().numpy())
+
+        data, ids, refined = self._budgeted(res, three_level)
         n1 = res // 8 + 1
-        K1 = d["budget_cells"]
+        K1 = self.last_grid_diag["budget_cells"]
         data, ids = data.cpu().numpy(), ids.cpu().numpy()
         corner_h = data[:n1 ** 3]
         sub_q_h = data[n1 ** 3:].reshape(K1, 27)
@@ -377,30 +347,6 @@ class Reconstructor:
         cells, _ = grid_mod.sparse_scan_cells(corner_h, top8_h, res)
         return (corner_h, top8_h, sub_q_h, top4_h,
                 np.ascontiguousarray(refined.cpu().numpy()), cells)
-
-    def _evaluate_two_level(self, l_feats, g_feats, calib, calib_inv,
-                            res: int, budget: int, auto: bool):
-        """Stride 8 -> 1 (``eval_grid_two_phase_sparse``); an overflowing
-        budget is right-sized to the active count (+5%, 4096-rounded) and
-        the evaluation run again."""
-        n3 = (res // 8) ** 3
-        while True:
-            corner, top, refined, diag = grid_mod.eval_grid_two_phase_sparse(
-                self._query, res, calib_inv, l_feats, g_feats, calib,
-                factor=8, budget_cells=budget)
-            d = self._diag_host(diag)
-            if not (auto and d["overflow_cells"] > 0 and budget < n3):
-                break
-            budget = min(_round_up(int(d["n_active"] * 1.05), 4096), n3)
-            print(f"[recon] escalating refinement budget: cells "
-                  f"{d['budget_cells']}->{budget} (active: "
-                  f"{d['n_active']})")
-            self._esc_budgets[res]["cells"] = budget
-        self._check_budget(d)
-        corner, top = corner.cpu().numpy(), top.cpu().numpy()
-        cells, _ = grid_mod.sparse_scan_cells(corner, top, res)
-        return corner, top, np.ascontiguousarray(refined.cpu().numpy()), \
-            cells
 
     @staticmethod
     def extract_mesh(field, resolution: int, thresh: float = 0.5,
@@ -431,15 +377,14 @@ class Reconstructor:
         calib_inv = torch.linalg.inv_ex(calib)[0]
         self._phase = "field"
         if use_octree:
-            budget = budget_cells or min(
-                getattr(self.opt, "num_refine_cells", 12288),
-                (res // 8) ** 3)
+            budget = budget_cells or min(self.opt.num_refine_cells,
+                                         (res // 8) ** 3)
             if sparse_transfer:
                 corner, top, refined, diag = \
                     grid_mod.eval_grid_two_phase_sparse(
                         self._query, res, calib_inv, l_feats, g_feats, calib,
                         factor=8, budget_cells=budget)
-                self._check_budget(self._diag_host(diag))
+                self._check_budget(grid_mod.diag_from_dvec(diag))
                 corner, top = corner.cpu().numpy(), top.cpu().numpy()
                 cells, marks = grid_mod.sparse_scan_cells(corner, top, res)
                 if res not in self._vol_cache:
@@ -451,25 +396,17 @@ class Reconstructor:
             vol, diag = grid_mod.eval_grid_two_phase(
                 self._query, res, calib_inv, l_feats, g_feats, calib,
                 factor=8, budget_cells=budget)
-            self._check_budget(self._diag_host(diag))
+            self._check_budget(grid_mod.diag_from_dvec(diag))
         else:
             with self.timed("field"):
                 vol = grid_mod.eval_grid_dense(self._query, res, calib_inv,
                                                l_feats, g_feats, calib)
-                _Landed(vol.device).wait()
+                Landed(vol.device).wait()
             self.last_grid_diag = None
         with self.timed("pull"):
-            host, landed = _to_host(vol)
+            host, landed = to_host(vol)
             landed.wait()
         return host.numpy(), None
-
-    @staticmethod
-    def _diag_host(diag) -> dict:
-        d = {"kth_activity": float(diag["kth_activity"]),
-             "n_active": int(diag["n_active"]),
-             "budget_cells": int(diag["budget_cells"])}
-        d["overflow_cells"] = max(0, d["n_active"] - d["budget_cells"])
-        return d
 
     # ------------------------------------------------------------- world
     @staticmethod
@@ -535,8 +472,9 @@ class Reconstructor:
 
     def _normals_one(self, verts, feats, calib):
         """uint8 normal colours of ``verts [M, 3]``: fd (one query call of
-        4 taps a vertex) or grad (one query call and its backward)."""
-        grad = getattr(self.opt, "normal_mode", "fd") == "grad"
+        4 taps a vertex) or grad (one query call and its backward), by
+        ``opt.normal_mode``."""
+        grad = color_plan(0, self.opt.normal_mode).colors == "grad"
         self._count(len(verts) if grad else 4 * len(verts))
         nml = (self._grad_normals(verts, feats, calib) if grad
                else self._calc_normal(verts, feats, calib))
@@ -545,9 +483,8 @@ class Reconstructor:
     def _chunk_dispatch(self, vq: np.ndarray, lo, scale, color_one):
         """Queue the colours of u16-quantised verts ``vq [k * 65536, 3]``,
         one 65536-vertex chunk at a time: ``color_one(verts [65536, 3])``
-        gives a chunk's uint8 colours (fd / grad normals, image colours or
-        the texture field, ``_color_fn``); returns the ``_ColorJob``
-        part."""
+        gives a chunk's uint8 colours (``_color_fn``); returns the
+        ``ColorJob`` part."""
         chunk = self._COLOR_CHUNK
         vq_d = self._upload(vq.view(np.int16)).to(torch.int32) & 0xFFFF
         lo_d, scale_d = self._upload(lo), self._upload(scale)
@@ -555,7 +492,7 @@ class Reconstructor:
         cols = [color_one(_dequantize_verts(vq_d[j * chunk:(j + 1) * chunk],
                                             lo_d, scale_d))
                 for j in range(len(vq) // chunk)]
-        return _to_host(torch.cat(cols))
+        return to_host(torch.cat(cols))
 
     def dispatch_block(self, block: np.ndarray, k: int, color_one):
         """Colour a block of world verts on its own bbox, padded to ``k``
@@ -563,36 +500,60 @@ class Reconstructor:
         vq, lo, scale = self._quantize_u16(block, k * self._COLOR_CHUNK)
         return self._chunk_dispatch(vq, lo, scale, color_one)
 
-    def _color_fn(self, feats, calib, tex=None):
-        """A chunk's colour function: the normals of the field (sharded
-        over the mesh), or with a texture map ``tex`` the texture
-        field's colours."""
-        if tex is None:
-            return lambda verts: self._normals(verts, feats, calib)
-        return lambda verts: self._tex_colors_one(verts, tex, calib)
+    def _color_fn(self, plan: ColorPlan, data: dict, feats, calib, tex):
+        """A chunk's colour function for ``plan.colors``: the field's
+        normals or the subject image's samples (both sharded over the
+        mesh), the texture field's colours from the map ``tex``, or None
+        for the mesh's own normals."""
+        if plan.colors == "texture":
+            return lambda verts: self._tex_colors_one(verts, tex, calib)
+        if plan.colors == "image":
+            image = self._tensor(data["img"])[0]
+            return lambda verts: self._img_colors(verts, image, calib)
+        if plan.colors == "mesh":
+            return None
+        return lambda verts: self._normals(verts, feats, calib)
 
-    def _chunked_start(self, color_one, verts: np.ndarray) -> _ColorJob:
+    def _chunked_parts(self, color_one, verts: np.ndarray) -> list:
         """Quantise all verts on the mesh bbox, pad to K chunks (a multiple
         of 4 above 4) and colour them with ``color_one`` in up to 4 groups
-        (``_chunk_dispatch``), each landing in its own pinned buffer; the
-        job pulls as groups land."""
+        (``_chunk_dispatch``), each landing in its own pinned buffer: the
+        ``ColorJob`` parts."""
         V = len(verts)
         if V == 0:
-            return _ColorJob([], 0)
+            return []
         chunk = self._COLOR_CHUNK
         K = max(1, -(-V // chunk))
         if K > 4:
             K = -(-K // 4) * 4
         vq, lo, scale = self._quantize_u16(verts, K * chunk)
         rows = (K // 4 if K > 4 else K) * chunk
-        parts = [self._chunk_dispatch(vq[s:s + rows], lo, scale, color_one)
-                 for s in range(0, K * chunk, rows)]
-        return _ColorJob(parts, V)
+        return [self._chunk_dispatch(vq[s:s + rows], lo, scale, color_one)
+                for s in range(0, K * chunk, rows)]
 
     def color_by_normals_start(self, verts: np.ndarray, feats,
-                               calib: torch.Tensor) -> _ColorJob:
+                               calib: torch.Tensor) -> ColorJob:
         """Dispatch normal colouring (fd or grad) of all verts."""
-        return self._chunked_start(self._color_fn(feats, calib), verts)
+        parts = self._chunked_parts(
+            lambda v: self._normals(v, feats, calib), verts)
+        return ColorJob(parts, len(verts), None)
+
+    def _colors_start(self, plan: ColorPlan, data: dict, feats, calib, tex,
+                      verts: np.ndarray, faces: np.ndarray) -> ColorJob:
+        """Dispatch the colours of a marched mesh (``_chunked_parts``) and,
+        for the cleanup, the copy of its projected vertices; the mesh's own
+        normals are left to whoever first reads the job."""
+        color_one = self._color_fn(plan, data, feats, calib, tex)
+        if color_one is None:
+            return ColorJob(lambda: compute_vertex_normals(verts, faces)
+                            * 0.5 + 0.5, len(verts), None)
+        parts = self._chunked_parts(color_one, verts)
+        xyz = None
+        if plan.cleanup:
+            xyz = to_host(geom.orthogonal(
+                self._upload(np.asarray(verts, np.float32))[None],
+                calib[None])[0])
+        return ColorJob(parts, len(verts), xyz)
 
     def encode_texture(self, img_global: torch.Tensor, g_feats):
         """netC's filter on the global image's RGB, attached to netG's last
@@ -618,38 +579,6 @@ class Reconstructor:
         xyz = geom.orthogonal(verts[None], calib[None])
         return _quantize_colors(
             geom.index(image[None], xyz[..., :2])[0][:, :3])
-
-    def color_by_image(self, verts: np.ndarray, image,
-                       calib) -> np.ndarray:
-        """Project verts into ``image [H, W, C]`` and sample colours."""
-        with self._no_autograd():
-            image, calib = self._tensor(image), self._tensor(calib)
-            return self._chunked_start(
-                lambda v: self._img_colors(v, image, calib), verts)()
-
-    def _sample_img_colors_start(self, verts, data, cleanup: bool):
-        """Dispatch the device part of image colouring (colour gather and,
-        for the cleanup, projected coords); returns ``finish() -> (colors,
-        xyz_proj)``, which only waits for the copies to land and so may run
-        on a worker thread."""
-        image = self._tensor(data["img"])[0]
-        calib = self._tensor(data["calib"])
-        job = self._chunked_start(
-            lambda v: self._img_colors(v, image, calib), verts)
-        xyz_host = None
-        if cleanup:     # projected coords feed the back-colour inpainting
-            xyz_host = _to_host(geom.orthogonal(
-                self._upload(np.asarray(verts, np.float32))[None],
-                calib[None])[0])
-
-        def finish():
-            colors = job()
-            if xyz_host is None:
-                return colors, None
-            xyz_host[1].wait()
-            return colors, xyz_host[0].numpy()
-
-        return finish
 
     # -------------------------------------------------------------- export
     @staticmethod
@@ -686,10 +615,17 @@ class Reconstructor:
         else:
             self._write_obj_streamed(save_path, verts, job, faces_blob)
 
-    def _finish_normals(self, verts, faces, save_path, montage, job,
-                        sink: dict | None = None) -> dict:
-        """Host tail of a normal-coloured mesh: face formatting and the
-        montage while the device computes the colours, then the export."""
+    def _host_stage(self, stage, data: dict, save_path: str,
+                    sink: dict | None) -> dict:
+        """The host tail of a mesh (``gen_mesh_many`` runs it on its
+        worker): image colours' world mapping and cleanup, then face
+        formatting and the montage while the device computes the colours,
+        then the export as they land."""
+        verts, faces, montage, job, plan = stage
+        if plan.colors == "image":
+            with self.timed("finish_host", sink):
+                verts, faces, job = self._image_tail(verts, faces, job, data,
+                                                     plan.cleanup)
         t0 = time.time()
         faces_blob = None
         if not save_path.endswith(".ply"):
@@ -705,24 +641,22 @@ class Reconstructor:
                                   "color_and_write": round(time.time() - t1,
                                                            4)}}
 
-    def _finish_img_color_host(self, verts, faces, colors, xyz_proj, data,
-                               save_path, cleanup: bool, montage) -> dict:
-        """Host part of image colouring: world mapping, cleanup,
-        inpainting, export, montage."""
+    @staticmethod
+    def _image_tail(verts, faces, job: ColorJob, data: dict, cleanup: bool):
+        """Image colours in the subject's world (``calib_world``), as the
+        JAX package writes them; ``cleanup`` keeps the largest connected
+        component and inpaints back-facing colours from the silhouette
+        boundary.  Returns ``(verts, faces, colour job)``."""
         if data.get("calib_world") is not None:
             cw_inv = np.linalg.inv(np.asarray(data["calib_world"],
                                               np.float64))
             verts = verts @ cw_inv[:3, :3].T + cw_inv[:3, 3]
         if cleanup:
             verts, faces, packed = keep_largest_component(
-                verts, faces, np.concatenate([colors, xyz_proj], 1))
+                verts, faces, np.concatenate([job(), job.projected()], 1))
             colors = estimate_back_colors(packed[:, :3], packed[:, 3:6])
-        if save_path.endswith(".ply"):
-            save_ply_with_color(save_path, verts, faces, colors)
-        else:
-            save_obj_with_color(save_path, verts, faces, colors)
-        self._write_montage(montage, save_path)
-        return {"verts": verts, "faces": faces}
+            job = ColorJob(lambda: colors, len(verts), None)
+        return verts, faces, job
 
     # --------------------------------------------------------- reconstruct
     def _calibs(self, data):
@@ -730,9 +664,6 @@ class Reconstructor:
             data["calib"].cpu() if isinstance(data["calib"], torch.Tensor)
             else data["calib"], np.float32)
         return self._tensor(calib_np), calib_np
-
-    def _use_octree(self, use_octree) -> bool:
-        return self.opt.use_octree if use_octree is None else use_octree
 
     def _begin(self) -> None:
         self.query_calls = 0
@@ -748,18 +679,19 @@ class Reconstructor:
                     host_secs={k: round(v, 4)
                                for k, v in self.host_secs.items()})
 
-    def _encode_subject(self, data: dict, texture: bool = False):
+    def _encode_subject(self, data: dict, plan: ColorPlan):
         """``(calib, its host copy, feats, montage, texture map or
         None)``; the montage strip is queued right behind the encoders,
         ahead of the field evaluation, so its copy has long landed when the
-        host writes it; the texture map (``texture``) right after it."""
+        host writes it; the texture map (texture colours) right after
+        it."""
         calib, calib_np = self._calibs(data)
         with self.timed("encode"):
             img_g = self._tensor(data["img_512"])
             feats = self.encode(self._tensor(data["img"]), img_g)
             montage = self._montage_start(data, feats)
         tex = None
-        if texture:
+        if plan.colors == "texture":
             with self.timed("tex_encode"):
                 tex = self.encode_texture(img_g, feats[1])
         return calib, calib_np, feats, montage, tex
@@ -784,98 +716,56 @@ class Reconstructor:
             raise RuntimeError("marching produced an empty mesh")
         return self._to_world(verts_idx, faces, calib_np, res)
 
-    def _device_stage_normals(self, data: dict, res: int,
-                              use_octree: bool = True, use_color: int = 0):
-        """Everything of a normal-coloured (``use_color`` 0) or
-        texture-coloured (3) mesh that launches kernels (and the marching
-        between the launches): ``(verts, faces, montage, colour job)``.
-        The three-level octree streams its bands and colours as it marches,
-        unless the normals are the mesh's own, which need the whole mesh
-        (``_HostColorJob``, computed by whoever first reads it)."""
-        from .streamed import reconstruct_streamed
-
-        texture = use_color == 3
-        calib, calib_np, feats, montage, tex = self._encode_subject(
-            data, texture)
-        color_one = self._color_fn(feats, calib, tex)
-        mesh_normals = (not texture
-                        and getattr(self.opt, "normal_mode", "fd") == "mesh")
-        if (use_octree and not mesh_normals
-                and getattr(self.opt, "octree_levels", 3) == 3
-                and res % 8 == 0
-                and getattr(self.opt, "streamed_recon", True)):
-            verts, faces, job, _ = reconstruct_streamed(
-                self, res, calib, calib_np, feats, color_one)
-            if len(verts) == 0:
-                raise RuntimeError("marching produced an empty mesh")
-        else:
-            verts, faces = self._march(feats, calib, calib_np, res,
-                                       use_octree)
-            job = (_HostColorJob(lambda: compute_vertex_normals(verts, faces)
-                                 * 0.5 + 0.5) if mesh_normals
-                   else self._chunked_start(color_one, verts))
-        if texture:
+    def _device_stage(self, data: dict, res: int, use_octree: bool,
+                      use_color: int):
+        """Everything of a mesh that launches kernels (and the marching
+        between the launches), in the autograd context its colours need:
+        ``(verts, faces, montage, colour job, plan)``.  A three-level
+        octree streams its bands and colours as it marches where the plan
+        allows."""
+        plan = color_plan(use_color, self.opt.normal_mode)
+        # grad normals' backward cannot save inference tensors (features
+        # made under inference_mode), so they take no_grad
+        with (torch.no_grad() if plan.colors == "grad"
+              else torch.inference_mode()):
+            calib, calib_np, feats, montage, tex = self._encode_subject(
+                data, plan)
+            if (use_octree and plan.streams and self.opt.octree_levels == 3
+                    and res % 8 == 0 and self.opt.streamed_recon):
+                verts, faces, job = reconstruct_streamed(
+                    self, res, calib, calib_np, feats,
+                    self._color_fn(plan, data, feats, calib, tex))
+                if len(verts) == 0:
+                    raise RuntimeError("marching produced an empty mesh")
+            else:
+                verts, faces = self._march(feats, calib, calib_np, res,
+                                           use_octree)
+                job = self._colors_start(plan, data, feats, calib, tex,
+                                         verts, faces)
+        if plan.colors == "texture":
             self.color_points += len(verts)
-        return verts, faces, montage, job
-
-    def _device_stage_img(self, data: dict, res: int, cleanup: bool,
-                          use_octree: bool = True):
-        """The same for an image-coloured mesh: ``(verts, faces, montage,
-        finish)``, ``finish() -> (colors, xyz_proj)`` only waiting."""
-        calib, calib_np, feats, montage, _ = self._encode_subject(data)
-        verts, faces = self._march(feats, calib, calib_np, res, use_octree)
-        return verts, faces, montage, self._sample_img_colors_start(
-            verts, data, cleanup)
-
-    def _host_stage(self, stage, data, save_path, use_color: int,
-                    sink: dict | None = None) -> dict:
-        """The host tail of either stage (``gen_mesh_many`` runs it on its
-        worker): waits for copies to land, formats, cleans up, writes."""
-        if use_color in (0, 3):
-            verts, faces, montage, job = stage
-            return self._finish_normals(verts, faces, save_path, montage,
-                                        job, sink)
-        verts, faces, montage, finish = stage
-        colors, xyz_proj = finish()
-        with self.timed("finish_host", sink):
-            return self._finish_img_color_host(
-                verts, faces, colors, xyz_proj, data, save_path,
-                use_color == 2, montage)
-
-    def reconstruct(self, data: dict, resolution: int | None = None,
-                    use_octree: bool | None = None):
-        """Field -> world-space mesh: ``(verts, faces, feats)``; the octree
-        field (``opt.octree_levels``) or, with ``use_octree=False``, every
-        lattice point."""
-        res = resolution or self.opt.resolution
-        with self._no_autograd():
-            calib, calib_np = self._calibs(data)
-            with self.timed("encode"):
-                feats = self.encode(self._tensor(data["img"]),
-                                    self._tensor(data["img_512"]))
-            verts, faces = self._march(feats, calib, calib_np, res,
-                                       self._use_octree(use_octree))
-        return verts, faces, feats
+        return verts, faces, montage, job, plan
 
     # ------------------------------------------------------------ gen_mesh
     def gen_mesh(self, data: dict, save_path: str, resolution=None,
                  use_octree=None, use_color: int = 0) -> dict:
-        """Normal-coloured mesh of one subject, written as OBJ or PLY;
-        ``use_color`` 3: coloured by the texture field instead.
+        """Mesh of one subject, written as OBJ or PLY, coloured as
+        ``use_color`` says (``color_plan``).
 
         ``data``: ``img [B2, H, W, 6]`` local windows, ``img_512
-        [1, h, w, 6]`` global image, ``calib [4, 4]`` (NumPy or tensors).
-        Returns verts, faces, secs, grid_diag and a ``phases`` breakdown.
+        [1, h, w, 6]`` global image, ``calib [4, 4]`` (NumPy or tensors;
+        image colours map to ``calib_world`` when it is given).  Returns
+        verts, faces, secs, grid_diag, a ``phases`` breakdown and the
+        counters.
         """
         t0 = time.time()
         res = resolution or self.opt.resolution
         self._begin()
-        with self._no_autograd():
-            stage = self._device_stage_normals(data, res,
-                                               self._use_octree(use_octree),
-                                               use_color)
-            t1 = time.time()
-            out = self._host_stage(stage, data, save_path, 0)
+        if use_octree is None:
+            use_octree = self.opt.use_octree
+        stage = self._device_stage(data, res, use_octree, use_color)
+        t1 = time.time()
+        out = self._host_stage(stage, data, save_path, None)
         t2 = time.time()
         out.update(secs=t2 - t0, grid_diag=self.last_grid_diag,
                    phases={"reconstruct": round(t1 - t0, 4),
@@ -883,38 +773,20 @@ class Reconstructor:
                    **self._counters())
         return out
 
-    def gen_mesh_img_color(self, data: dict, save_path: str, resolution=None,
-                           use_octree=None, cleanup: bool = False) -> dict:
-        """Image-coloured mesh.  ``cleanup=True`` keeps the largest
-        connected component and inpaints back-facing vertex colours from
-        the silhouette boundary."""
-        t0 = time.time()
-        res = resolution or self.opt.resolution
-        self._begin()
-        with self._no_autograd():
-            stage = self._device_stage_img(data, res, cleanup,
-                                           self._use_octree(use_octree))
-            out = self._host_stage(stage, data, save_path, 2 if cleanup
-                                   else 1)
-        out.update(secs=time.time() - t0, grid_diag=self.last_grid_diag,
-                   **self._counters())
-        return out
-
     def gen_mesh_many(self, items, save_paths, use_color: int = 0,
                       resolution: int | None = None,
                       pipeline: bool | None = None) -> list[dict]:
-        """Two-slot subject pipeline (``use_color`` 0 fd normals, 1 / 2
-        image colours, 3 the texture field): subject i's host tail (waiting for
-        its colours to land, face formatting, component cleanup,
-        inpainting, mesh and montage write) runs on a worker thread while
-        subject i+1's device stage (encode, field evaluation, marching,
-        colour dispatch) proceeds on the main thread.
+        """Two-slot subject pipeline: subject i's host tail (waiting for
+        its colours to land, world mapping and cleanup of image colours,
+        face formatting, mesh and montage write) runs on a worker thread
+        while subject i+1's device stage (encode, field evaluation,
+        marching, colour dispatch) proceeds on the main thread.
 
         Every kernel launch stays on the main thread and on one stream, in
         the order of the sequential loop; the worker only waits on CUDA
         events and does host work.  So the meshes are those of one
-        ``gen_mesh`` / ``gen_mesh_img_color`` call per subject, whatever
-        the timing.  Returns result dicts in input order.
+        ``gen_mesh`` call per subject, whatever the timing.  Returns result
+        dicts in input order.
 
         ``pipeline=None`` takes the worker when the host has more than one
         core, else the sequential loop.  ``items`` may be any iterable (a
@@ -935,14 +807,11 @@ class Reconstructor:
             pipeline = n_cores > 1
         if not pipeline:
             return [self.gen_mesh(d, p, res, use_color=use_color)
-                    if use_color in (0, 3)
-                    else self.gen_mesh_img_color(d, p, res,
-                                                 cleanup=use_color == 2)
                     for d, p in pairs]
 
         def host_stage(stage, data, save_path, t0, diag, counters):
             sink: dict = {}
-            out = self._host_stage(stage, data, save_path, use_color, sink)
+            out = self._host_stage(stage, data, save_path, sink)
             counters["host_secs"].update(
                 {k: round(v, 4) for k, v in sink.items()})
             out.update(secs=time.time() - t0, grid_diag=diag, **counters)
@@ -954,12 +823,7 @@ class Reconstructor:
             for data, save_path in pairs:
                 t0 = time.time()
                 self._begin()
-                with self._no_autograd():
-                    stage = (self._device_stage_normals(
-                                 data, res, use_color=use_color)
-                             if use_color in (0, 3) else
-                             self._device_stage_img(data, res,
-                                                    use_color == 2))
+                stage = self._device_stage(data, res, True, use_color)
                 if pending is not None:
                     results.append(pending.result())
                 pending = ex.submit(host_stage, stage, data, save_path, t0,

@@ -7,9 +7,11 @@ queued in bands of 4096 sub-cells, each followed by a non-blocking copy
 into its rows of one pinned ``refined`` buffer and a CUDA event.  While the
 device works through the bands, the host scans the head for surface cells
 and marches every cell whose data (its own and its 26 neighbours'
-sub-cells) has landed, dispatching fd-normal (or texture) colouring per
-4 x 65536 vertices as it goes.  The native session's global edge dedup
-makes the result the one-shot mesh up to vertex order.
+sub-cells) has landed, dispatching its colours (fd or grad normals, or the
+texture field) per 4 x 65536 vertices as it goes.  The native session's
+global edge dedup makes the result the one-shot mesh up to vertex order.
+The budgets are ``Reconstructor._budgeted``'s: a head that overflows them
+is dispatched again.
 """
 
 from __future__ import annotations
@@ -18,15 +20,17 @@ import numpy as np
 import torch
 
 from . import grid as grid_mod
+from .landing import ColorJob, Landed
 from .marching import IncrementalMarcher3
-from .pipeline import _ColorJob, _Landed
 
 
-def _dispatch(recon, res, K1, K2, calib_inv, feats, calib):
-    """Queue phases 1-2, the head's copy to the host, then every phase-3
-    band and its copy into one pinned buffer.  Returns ``(head_host,
-    head_landed, refined_host, landed, band_sz)``."""
+def _dispatch(recon, res, budget, sub_budget, calib_inv, feats, calib):
+    """Queue phases 1-2 at the budgets, the head's copy to the host, then
+    every phase-3 band and its copy into one pinned buffer.  Returns
+    ``(head_host, head_landed, refined_host, landed, band_sz, K1, K2)``."""
     l_feats, g_feats = feats
+    K1 = min(budget, (res // 8) ** 3)
+    K2 = min(sub_budget, K1 * 8)
     dev = recon.device
     pin = dev.type == "cuda"
     recon._phase = "p1"
@@ -42,7 +46,7 @@ def _dispatch(recon, res, K1, K2, calib_inv, feats, calib):
                  for t in head_dev]
     for h, t in zip(head_host, head_dev):
         h.copy_(t, non_blocking=True)
-    head_landed = _Landed(dev)
+    head_landed = Landed(dev)
 
     band_sz, n_bands, sub_base_p = grid_mod.p3_bands(sub_base)
     refined_host = torch.empty((n_bands * band_sz, 32), dtype=torch.uint8,
@@ -55,8 +59,8 @@ def _dispatch(recon, res, K1, K2, calib_inv, feats, calib):
             recon._query, res, 4, 4.0, calib_inv, sub_base_p[rows], l_feats,
             g_feats, calib)
         refined_host[rows].copy_(band, non_blocking=True)
-        landed.append(_Landed(dev))
-    return head_host, head_landed, refined_host, landed, band_sz
+        landed.append(Landed(dev))
+    return head_host, head_landed, refined_host, landed, band_sz, K1, K2
 
 
 def _march_order(cells, top8_h, top4_h, n, K1, K2, band_sz, n_bands):
@@ -90,28 +94,21 @@ def reconstruct_streamed(recon, res: int, calib: torch.Tensor,
     """``calib`` on the device, ``calib_np`` its host copy (reading the
     device copy back would wait for the queued bands).  ``color_one``
     colours a 65536-vertex chunk (``recon._color_fn``).  Returns ``(verts,
-    faces, color job, field)``; ``field`` holds the host arrays ``(corner,
-    top8, sub_q, top4, refined, cells_sorted)``."""
+    faces, colour job)``."""
     factor = 8
     n = res // factor
     calib_inv = torch.linalg.inv_ex(calib)[0]
-    budget, sub_budget = recon.budgets(res)
-    auto = getattr(recon.opt, "auto_escalate_budget", True)
 
-    while True:
-        K1 = min(budget, n ** 3)
-        K2 = min(sub_budget, K1 * 8)
+    def attempt(budget, sub_budget):
         with recon.timed("field_dispatch"):
-            head_host, head_landed, refined_host, landed, band_sz = \
-                _dispatch(recon, res, K1, K2, calib_inv, feats, calib)
+            out = _dispatch(recon, res, budget, sub_budget, calib_inv, feats,
+                            calib)
         with recon.timed("wait_head"):
-            head_landed.wait()
-        d = grid_mod.diag_from_dvec(head_host[2].numpy())
-        grown = recon.escalate(res, d, budget, sub_budget) if auto else None
-        if grown is None:
-            break
-        budget, sub_budget = grown
-    recon._check_budget(d)
+            out[1].wait()
+        return out, grid_mod.diag_from_dvec(out[0][2].numpy())
+
+    head_host, _, refined_host, landed, band_sz, K1, K2 = recon._budgeted(
+        res, attempt)
     n_bands = len(landed)
 
     # ---- host scan while the bands compute
@@ -185,5 +182,4 @@ def reconstruct_streamed(recon, res: int, calib: torch.Tensor,
     verts = np.concatenate(vparts) if vparts \
         else np.zeros((0, 3), np.float32)
     faces = np.concatenate(fparts) if fparts else np.zeros((0, 3), np.int32)
-    field = (corner_h, top8_h, sub_q_h, top4_h, refined_np, cells_sorted)
-    return verts, faces, _ColorJob(parts, len(verts)), field
+    return verts, faces, ColorJob(parts, len(verts), None)

@@ -156,8 +156,8 @@ def _canon(path):
 
 @pytest.mark.parametrize("colour", ["normals", "image"])
 def test_reconstructor_mesh_matches_jax(world, recons, tmp_path, colour):
-    """``gen_mesh`` (fd colours) and ``gen_mesh_img_color`` of
-    ``Reconstructor(mesh=...)`` at 32^3 against JAX's: the meshes, and the
+    """``gen_mesh`` (fd colours, and image colours with ``use_color=1``)
+    of ``Reconstructor(mesh=...)`` at 32^3 against JAX's: the meshes, and the
     colours.  Image colours are read from the files.  The fd colours of a
     GroupNorm field depend on which vertices share a chunk, which follows
     the marcher's run-to-run vertex order, so they are held on the JAX
@@ -172,7 +172,7 @@ def test_reconstructor_mesh_matches_jax(world, recons, tmp_path, colour):
         out = tr.gen_mesh(d, pt, resolution=RES)
     else:
         jr.gen_mesh_img_color(jd, pj, resolution=RES)
-        out = tr.gen_mesh_img_color(d, pt, resolution=RES)
+        out = tr.gen_mesh(d, pt, resolution=RES, use_color=1)
     vj, cj, tj = _canon(pj)
     vt, ct, tt = _canon(pt)
     assert vt.shape == vj.shape and len(vt) > 100

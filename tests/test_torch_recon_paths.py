@@ -211,3 +211,61 @@ def test_run_recon_flags_act(tmp_path, capsys, flags, calls):
                            f"result_capsule_{RES}.obj"))
     assert len(v) > 0 and len(f) > 0
     assert n["query_calls"] == calls, n
+
+
+@pytest.mark.parametrize("res,kw", [
+    (64, {}), (64, dict(streamed_recon=False, normal_mode="mesh")),
+    (256, dict(octree_levels=2, normal_mode="mesh"))],
+    ids=["streamed", "oneshot", "two_level"])
+def test_budget_loop_escalates(tmp_path, res, kw):
+    """Budgets far below the active counts (``bench_tiny``'s trained
+    capsule): each octree path runs the one budget loop.  It escalates
+    through ``Reconstructor.escalate`` (cells only on the two-level
+    octree), dispatches again and ends without overflow; the mesh is the
+    one of the escalated budgets given as options, and the next mesh
+    starts at them."""
+    from rgbd_pifuhd_tpu_torch.cli.common import load_item, load_reconstructor
+    from rgbd_pifuhd_tpu_torch.data.readdata import InferenceDataset
+    from rgbd_pifuhd_tpu_torch.utils.options import parse_options
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.join(repo, "tests", "data", "jpeg_subject")
+    opt, dev = parse_options(
+        ["--load_netMR_checkpoint_path",
+         os.path.join(repo, "assets", "bench_tiny", "ckpt"),
+         "--dataroot", root, "--loadSize", "128", "--device", "cpu"],
+        with_device=True)
+    loaded, opt = load_reconstructor(opt, dev)[:2]
+
+    def recon(cells, subcells):
+        return Reconstructor(loaded.model, dataclasses.replace(
+            opt, num_refine_cells=cells, num_refine_subcells=subcells, **kw),
+            device="cpu")
+
+    data = load_item(InferenceDataset(root, 128), 0)
+    tight = recon(1, 8)
+    grown = []
+    escalate = tight.escalate
+
+    def spy(*a):
+        grown.append(escalate(*a))
+        return grown[-1]
+
+    tight.escalate = spy
+    out = tight.gen_mesh(data, str(tmp_path / "tight.obj"), res)
+    assert len(grown) >= 2 and grown[-1] is None
+    assert all(g is not None for g in grown[:-1])
+    d = out["grid_diag"]
+    assert d["overflow_cells"] == d["overflow_subcells"] == 0
+    esc = tight._esc_budgets[res]
+    assert tight.budgets(res) == (esc["cells"], esc["subcells"])
+    assert d["budget_cells"] == esc["cells"] > 1
+    same = recon(esc["cells"], esc["subcells"]).gen_mesh(
+        data, str(tmp_path / "same.obj"), res)
+    assert same["grid_diag"] == d
+    a = _canon(str(tmp_path / "tight.obj"))
+    b = _canon(str(tmp_path / "same.obj"))
+    assert np.array_equal(a[0], b[0]) and np.array_equal(a[2], b[2])
+    grown.clear()
+    again = tight.gen_mesh(data, str(tmp_path / "again.obj"), res)
+    assert grown == [None] and again["query_calls"] == same["query_calls"]

@@ -180,6 +180,65 @@ def test_serve_loop_times_each_read(world):
     assert all(m["read_secs"] > 0 for m in got[1:]), got
 
 
+# -------------------------------------------- one entry for every colour
+@pytest.mark.parametrize("use_color", [0, 1, 2])
+def test_entries_reach_gen_mesh(world, monkeypatch, use_color):
+    """A single-subject request, through ``serve._serve_loop`` and through
+    ``run_recon`` (one subject of the range), reaches
+    ``Reconstructor.gen_mesh`` with its ``use_color``, whatever that is,
+    and writes the JAX package's mesh of the subject (its ``gen_mesh`` or
+    ``gen_mesh_img_color``): the same vertex and triangle sets within
+    1e-5 and, for image colours, the colours within 2/255.  The fd colours
+    of this untrained field are rounding noise in either package
+    (``tests/test_torch_recon.py``), so they are not compared."""
+    from rgbd_pifuhd_tpu_torch.cli.common import load_item, load_reconstructor
+    from rgbd_pifuhd_tpu_torch.data.readdata import InferenceDataset
+    from rgbd_pifuhd_tpu_torch.utils.options import parse_options
+
+    tmp = world["tmp"] / f"route_{use_color}"
+    os.makedirs(tmp)
+    args = ["--dataroot", world["req"],
+            "--load_netMR_checkpoint_path", world["ckpt"],
+            "--results_path", str(tmp), "--resolution", str(RES),
+            "--loadSize", "64", "--name", "route", "--device", "cpu",
+            "--use_color", str(use_color), "--start_id", "1", "--end_id", "2"]
+    calls = []
+    orig = Reconstructor.gen_mesh
+
+    def spy(self, *a, **kw):
+        calls.append(kw.get("use_color"))
+        return orig(self, *a, **kw)
+
+    monkeypatch.setattr(Reconstructor, "gen_mesh", spy)
+    opt, dev = parse_options(args, with_device=True)
+    got = []
+    serve._serve_loop(load_reconstructor(opt, dev)[0], opt, str(tmp),
+                      [f"{world['req']}::zwei\n"], got.append)
+    run_recon.main(args)
+    assert calls == [use_color, use_color]
+    data = load_item(InferenceDataset(world["req"], 64), 1)
+    assert data["name"] == "zwei"
+    jd = {k: (jnp.asarray(v) if k in ("img", "img_512") else v)
+          for k, v in data.items()}
+    jr = JReconstructor(world["jm"], world["params"], JOptions(resolution=RES))
+    jp = str(tmp / "jax.obj")
+    if use_color:
+        jr.gen_mesh_img_color(jd, jp, RES, cleanup=use_color == 2)
+    else:
+        jr.gen_mesh(jd, jp, RES)
+    ref = _canon(*tmesh.load_obj(jp))
+    for p in (got[0]["mesh"],
+              str(tmp / "route" / "recon" / f"result_zwei_{RES}.obj")):
+        mine = _canon(*tmesh.load_obj(p))
+        assert mine[0].shape == ref[0].shape and len(mine[0]) > 100
+        assert mine[2].shape == ref[2].shape
+        np.testing.assert_allclose(mine[0], ref[0], atol=1e-5)
+        np.testing.assert_allclose(mine[2], ref[2], atol=1e-5)
+        if use_color:
+            np.testing.assert_allclose(mine[1], ref[1],
+                                       atol=2.0 / 255.0 + 1e-6)
+
+
 # ---------------------------------------------------------- gen_mesh_many
 @pytest.mark.parametrize("use_color,ext", [(0, "obj"), (1, "obj"),
                                            (2, "ply")])
@@ -191,9 +250,7 @@ def test_gen_mesh_many_equals_sequential(world, use_color, ext):
     seq = []
     for d in subjects:
         p = str(tmp / f"seq_{use_color}_{d['name']}.{ext}")
-        seq.append((p, seq_r.gen_mesh(d, p, RES) if use_color == 0 else
-                    seq_r.gen_mesh_img_color(d, p, RES,
-                                             cleanup=use_color == 2)))
+        seq.append((p, seq_r.gen_mesh(d, p, RES, use_color=use_color)))
     many_r = Reconstructor(world["tm"], opt, device="cpu")
     paths = [str(tmp / f"many_{use_color}_{d['name']}.{ext}")
              for d in subjects]
@@ -244,7 +301,7 @@ def test_img_color_and_ply_match_jax(world, cleanup):
     jout = jr.gen_mesh_img_color(jd, jp, RES, cleanup=cleanup)
     tr = Reconstructor(world["tm"], Options(resolution=RES), device="cpu")
     tp = str(tmp / f"t_{cleanup}.ply")
-    tout = tr.gen_mesh_img_color(d, tp, RES, cleanup=cleanup)
+    tout = tr.gen_mesh(d, tp, RES, use_color=2 if cleanup else 1)
     assert len(tout["verts"]) == len(jout["verts"]) > 100
     assert len(tout["faces"]) == len(jout["faces"])
     # the port's PLY read by the JAX package's reader and the reverse
@@ -258,7 +315,7 @@ def test_img_color_and_ply_match_jax(world, cleanup):
     np.testing.assert_allclose(a[1], b[1], atol=2.0 / 255.0 + 1e-6)
     # and as OBJ through the native writer
     to = str(tmp / f"t_{cleanup}.obj")
-    tr.gen_mesh_img_color(d, to, RES, cleanup=cleanup)
+    tr.gen_mesh(d, to, RES, use_color=2 if cleanup else 1)
     vo, fo, co = tmesh.load_obj(to)
     assert len(vo) == len(vt) and len(fo) == len(ft)
     np.testing.assert_allclose(_canon(vo, fo, co)[1], a[1],
