@@ -82,15 +82,29 @@ def load_marching():
         lib.mt_run_sparse.argtypes = [u8p, i32p, i64, u8p, i64, ci, i64, ci,
                                       cf, cf, i8p, ci, ci, i32p,
                                       i64] + out_args
+        # dense volume [X, Y, Z], threshold, case table, mc_cols, threads,
+        # then the scan cells and their factor
+        lib.mt_run_cells.restype = ci
+        lib.mt_run_cells.argtypes = [ctypes.POINTER(ctypes.c_float), i64,
+                                     i64, i64, cf, i8p, ci, ci, i32p, i64,
+                                     ci] + out_args
         lib.mt_free.argtypes = [ctypes.c_void_p]
+        lib.mt_pooled_merge_min.restype = i64
+        lib.mt_pooled_merge_min.argtypes = []
+        # the field, threads, then the first step's vertices a cell
         lib.mt3_begin.restype = ctypes.c_void_p
-        lib.mt3_begin.argtypes = field3
+        lib.mt3_begin.argtypes = field3 + [ctypes.c_double]
+        # session, cells, n_cells -> new vertices, base vertex, faces
         lib.mt3_step.restype = ci
-        lib.mt3_step.argtypes = [
-            ctypes.c_void_p, i32p, i64,
-            ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
-            ctypes.POINTER(i64), ctypes.POINTER(i64),
-            ctypes.POINTER(i32p), ctypes.POINTER(i64)]
+        lib.mt3_step.argtypes = [ctypes.c_void_p, i32p, i64,
+                                 ctypes.POINTER(i64), ctypes.POINTER(i64),
+                                 ctypes.POINTER(i64)]
+        lib.mt3_take.restype = ci
+        lib.mt3_take.argtypes = [ctypes.c_void_p,
+                                 ctypes.POINTER(ctypes.c_float), i32p]
+        lib.mt3_stats.restype = ci
+        lib.mt3_stats.argtypes = [ctypes.c_void_p, ctypes.POINTER(i64),
+                                  ctypes.POINTER(ctypes.c_double)]
         lib.mt3_end.argtypes = [ctypes.c_void_p]
         _CACHE["marching"] = lib
         return lib

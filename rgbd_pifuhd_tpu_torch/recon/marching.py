@@ -330,7 +330,7 @@ def _as_ptrs(corner_q, top8_idx, sub_q, top4_idx, refined, algorithm):
 
 
 def _field_args(keep, resolution, factor, pack_bits, band_scale, threshold,
-                mc_cols):
+                mc_cols, n_threads=0):
     import ctypes
 
     cq, t8, sq, t4, rf, table = keep
@@ -345,7 +345,7 @@ def _field_args(keep, resolution, factor, pack_bits, band_scale, threshold,
             ctypes.c_int64(resolution), ctypes.c_int(pack_bits),
             ctypes.c_float(band_scale), ctypes.c_float(threshold),
             table.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
-            ctypes.c_int(mc_cols), 0]
+            ctypes.c_int(mc_cols), ctypes.c_int(n_threads)]
 
 
 def _take_mesh(lib, rc: int, what: str, vp, nv, fp, nf):
@@ -446,19 +446,31 @@ def marching_tetrahedra_sparse3(
     return _take_mesh(lib, rc, "mt_run_sparse3", vp, nv, fp, nf)
 
 
+# IncrementalMarcher3.stats()'s counts, in mt3_stats's order
+_MT3_COUNTS = ("steps", "verts_local", "verts_new", "verts_resolved",
+               "map_grows", "map_resizes", "merges_pooled")
+
+
 class IncrementalMarcher3:
     """Slab-incremental marching over the three-phase sparse field (the
-    native ``mt3_begin/step/end`` session): feeding the scan cells in any
-    order and any number of slabs yields the one-shot mesh up to vertex
+    native ``mt3_begin/step/take/end`` session): feeding the scan cells in
+    any order and any number of slabs yields the one-shot mesh up to vertex
     order.  ``step`` returns ``(new_verts, faces)``: the vertices this slab
     appended (index space) and faces in global vertex indices.  The field
     arrays must stay alive (they are held here) and ``refined`` may be
-    filled in later, before the cells that read it are stepped."""
+    filled in later, before the cells that read it are stepped.
+
+    ``n_threads`` (0: one a core) scan and merge each step; ``first_per_
+    cell`` (0: the native default) is the thread-local vertices a scan cell
+    the first step sizes its maps for (later steps take five times the
+    session's own mean, if that is more)."""
 
     def __init__(self, corner_q, top8_idx, sub_q, top4_idx, refined,
                  resolution: int, factor: int = 8, pack_bits: int = 4,
                  band_scale: float = 4.0, threshold: float = 0.5,
-                 algorithm: str = "mt"):
+                 algorithm: str = "mt", n_threads: int = 0,
+                 first_per_cell: float = 0.0):
+        import ctypes
         from ..native import load_marching
 
         self._lib = load_marching()
@@ -468,9 +480,11 @@ class IncrementalMarcher3:
                              "(the session reads it in place)")
         self._keep = _as_ptrs(corner_q, top8_idx, sub_q, top4_idx, refined,
                               algorithm)
-        self._sess = self._lib.mt3_begin(*_field_args(
-            self._keep, resolution, factor, pack_bits, band_scale, threshold,
-            _packed_table(algorithm)[1]))
+        self._sess = self._lib.mt3_begin(
+            *_field_args(self._keep, resolution, factor, pack_bits,
+                         band_scale, threshold, _packed_table(algorithm)[1],
+                         n_threads),
+            ctypes.c_double(first_per_cell))
         if not self._sess:
             raise RuntimeError("mt3_begin failed")
         self.total_verts = 0
@@ -479,15 +493,36 @@ class IncrementalMarcher3:
         import ctypes
 
         cells = np.ascontiguousarray(cell_origins, dtype=np.int32)
-        vp, nv, fp, nf = _out_args()
-        base = ctypes.c_int64()
+        nv, base, nf = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
         rc = self._lib.mt3_step(
             self._sess, cells.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            ctypes.c_int64(len(cells)), ctypes.byref(vp), ctypes.byref(nv),
-            ctypes.byref(base), ctypes.byref(fp), ctypes.byref(nf))
-        verts, faces = _take_mesh(self._lib, rc, "mt3_step", vp, nv, fp, nf)
+            ctypes.c_int64(len(cells)), ctypes.byref(nv), ctypes.byref(base),
+            ctypes.byref(nf))
+        if rc != 0:
+            raise RuntimeError(f"mt3_step failed (rc={rc})")
+        # the merge writes the step's output straight into these arrays
+        verts = np.empty((nv.value, 3), np.float32)
+        faces = np.empty((nf.value, 3), np.int32)
+        rc = self._lib.mt3_take(
+            self._sess, verts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            faces.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        if rc != 0:
+            raise RuntimeError(f"mt3_take failed (rc={rc})")
         self.total_verts = base.value + nv.value
         return verts, faces
+
+    def stats(self) -> dict:
+        """The session's counters over its steps (``_MT3_COUNTS``) and the
+        wall seconds of its scans and merges (``scan_s``, ``merge_s``)."""
+        import ctypes
+
+        counts = (ctypes.c_int64 * len(_MT3_COUNTS))()
+        secs = (ctypes.c_double * 2)()
+        rc = self._lib.mt3_stats(self._sess, counts, secs)
+        if rc != 0:
+            raise RuntimeError(f"mt3_stats failed (rc={rc})")
+        return dict(zip(_MT3_COUNTS, counts), scan_s=secs[0],
+                    merge_s=secs[1])
 
     def close(self):
         if getattr(self, "_sess", None):

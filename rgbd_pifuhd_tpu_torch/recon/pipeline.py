@@ -165,6 +165,7 @@ class Reconstructor:
         self.color_points = 0           # vertices the texture field coloured
         self.color_calls = 0            # its fused queries (65,536 rows each)
         self.host_secs: dict[str, float] = {}
+        self.march_counts: dict[str, int] = {}  # of the streamed marcher
         self._phase = "field"
 
     @contextlib.contextmanager
@@ -177,6 +178,19 @@ class Reconstructor:
             yield
         finally:
             sink[name] = sink.get(name, 0.0) + time.perf_counter() - t
+
+    def note_march(self, stats: dict) -> None:
+        """Add a marching session's counters (``IncrementalMarcher3.
+        stats``) to the mesh's: its scan and merge seconds, the two parts of
+        ``host_secs["march"]``'s native step, as ``host_secs["march_scan"]``
+        and ``["march_merge"]``, its counts to ``march_counts``."""
+        stats = dict(stats)
+        for part in ("scan", "merge"):
+            key = f"march_{part}"
+            self.host_secs[key] = (self.host_secs.get(key, 0.0)
+                                   + stats.pop(f"{part}_s"))
+        for k, v in stats.items():
+            self.march_counts[k] = self.march_counts.get(k, 0) + v
 
     # ------------------------------------------------------------- query
     def _count(self, n_points: int) -> None:
@@ -670,10 +684,12 @@ class Reconstructor:
         self.points_queried = {}
         self.color_points = self.color_calls = 0
         self.host_secs = {}
+        self.march_counts = {}
 
     def _counters(self) -> dict:
         return dict(points_queried=dict(self.points_queried),
                     query_calls=self.query_calls,
+                    march_counts=dict(self.march_counts),
                     color_points=self.color_points,
                     color_calls=self.color_calls,
                     host_secs={k: round(v, 4)

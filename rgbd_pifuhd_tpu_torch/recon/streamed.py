@@ -174,6 +174,7 @@ def reconstruct_streamed(recon, res: int, calib: torch.Tensor,
                 landed[b].wait()
             march_range(m, done_i, int(group_end[b]))
             done_i = int(group_end[b])
+        recon.note_march(m.stats())
     if n_pending:
         tail = pending[0] if len(pending) == 1 else np.concatenate(pending)
         with recon.timed("color_dispatch"):

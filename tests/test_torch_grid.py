@@ -237,3 +237,85 @@ def test_dense_and_two_level_marching_match_reference(algorithm):
         corner, top, refined, cells, RES2, algorithm=algorithm),
         jm.marching_tetrahedra_sparse(corner, top, refined, cells, RES2,
                                       algorithm=algorithm))
+
+
+def _port_mt_run_cells(vol, cells, algorithm):
+    """The port's ``mt_run_cells`` (no wrapper calls it): the dense
+    masked scan over ``cells``' voxel origins."""
+    import ctypes
+
+    from rgbd_pifuhd_tpu_torch.native import load_marching
+    from rgbd_pifuhd_tpu_torch.recon import marching as tm
+
+    lib = load_marching()
+    vol = np.ascontiguousarray(vol, np.float32)
+    cells = np.ascontiguousarray(cells, np.int32)
+    table, mc_cols = tm._packed_table(algorithm)
+    vp, nv, fp, nf = tm._out_args()
+    rc = lib.mt_run_cells(
+        vol.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        *[ctypes.c_int64(d) for d in vol.shape], ctypes.c_float(0.5),
+        table.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        ctypes.c_int(mc_cols), 0,
+        cells.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.c_int64(len(cells)), ctypes.c_int(8), ctypes.byref(vp),
+        ctypes.byref(nv), ctypes.byref(fp), ctypes.byref(nf))
+    return tm._take_mesh(lib, rc, "mt_run_cells", vp, nv, fp, nf)
+
+
+@pytest.mark.parametrize("algorithm", ["mc", "mt"])
+@pytest.mark.parametrize("res", [16, 128], ids=["one_thread_merge",
+                                                "pooled_merge"])
+@pytest.mark.parametrize("entry", ["mt_run", "mt_run_cells",
+                                   "mt_run_sparse", "mt_run_sparse3"])
+def test_one_shot_marchers_match_reference(entry, res, algorithm):
+    """Every one-shot native entry gives the reference's mesh as vertex and
+    triangle sets, on a capsule small enough that its merge runs on the
+    calling thread (fewer thread-local vertices than the pool's least,
+    whatever the worker count: at most 15 slabs or 8 cells) and one large
+    enough that it runs on the pool."""
+    from rgbd_pifuhd_tpu.recon import marching as jm
+    from rgbd_pifuhd_tpu_torch.native import load_marching
+    from rgbd_pifuhd_tpu_torch.recon import marching as tm
+
+    tinv, tc = torch.from_numpy(CALIB_INV), torch.tensor(C)
+    kw = dict(algorithm=algorithm)
+    if entry in ("mt_run", "mt_run_cells"):
+        vol = tgrid.eval_grid_dense(tfield, res, tinv, tc).numpy()
+        if entry == "mt_run":
+            got, ref = tm.marching_tetrahedra(vol, **kw), \
+                jm.marching_tetrahedra(vol, **kw)
+        else:
+            g = np.arange(0, res - 1, 8)
+            cells = np.stack(np.meshgrid(g, g, g, indexing="ij"),
+                             -1).reshape(-1, 3)
+            got = _port_mt_run_cells(vol, cells, algorithm)
+            ref = jm.marching_tetrahedra_cells(vol, cells, 8, **kw)
+    elif entry == "mt_run_sparse":
+        corner, top, refined, _ = tgrid.eval_grid_two_phase_sparse(
+            tfield, res, tinv, tc, budget_cells=min(1024, (res // 8) ** 3))
+        corner, top, refined = corner.numpy(), top.numpy(), refined.numpy()
+        cells, _ = tgrid.sparse_scan_cells(corner, top, res)
+        got = tm.marching_tetrahedra_sparse(corner, top, refined, cells,
+                                            res, **kw)
+        ref = jm.marching_tetrahedra_sparse(corner, top, refined, cells,
+                                            res, **kw)
+    else:
+        out = tgrid.eval_grid_three_phase_sparse(
+            tfield, res, tinv, tc, budget_cells=min(1024, (res // 8) ** 3),
+            budget_subcells=8192)
+        field = [np.ascontiguousarray(x.numpy()) for x in out[:5]]
+        cells, _ = tgrid.sparse_scan_cells(field[0], field[1], res)
+        got = tm.marching_tetrahedra_sparse3(*field, cells, res, **kw)
+        ref = jm.marching_tetrahedra_sparse3(*field, cells, res, **kw)
+    (v, f), (jv, jf) = got, ref
+    pooled_min = load_marching().mt_pooled_merge_min()
+    if res == 16:
+        assert 100 < len(v) and len(v) * 15 < pooled_min
+    else:
+        assert len(v) >= pooled_min
+    assert f.min() >= 0 and f.max() < len(v)
+    o, oj = np.lexsort(v.T), np.lexsort(jv.T)
+    _eq(f"{entry} verts", v[o], jv[oj])
+    t, tj = v[f].reshape(-1, 9), jv[jf].reshape(-1, 9)
+    _eq(f"{entry} triangles", t[np.lexsort(t.T)], tj[np.lexsort(tj.T)])
